@@ -6,17 +6,29 @@
 Phases (any failure exits non-zero and prints no result line):
   1. print the card's name and power limit; build the CUDA kernels from
      the sources in this checkout (one nvcc per source, all in parallel);
-  2. hold every kernel against its plain PyTorch version on the card:
-     f64 and f32, Cauchy a in {0, 1}, want_ext in {True, False}, random
-     ids with ragged nobs and near-plane landmarks, and the flagship shape;
-     time kernel and plain version per call at the flagship shape;
+  2. hold the projection kernel against its plain PyTorch version on the
+     card: f64 and f32, Cauchy a in {0, 1}, want_ext in {True, False},
+     random ids with ragged nobs and near-plane landmarks, and the flagship
+     shape; time kernel and plain version per call at the flagship shape;
   3. drive the main path once — the flagship batched RTK-VI window solve
      at full width (nf=11, nl=352, nobs=2816, cap=11, ns=14, nb=16, B=32,
      f32, 8 dogleg iterations) through ``batched_rtk_solve`` — with the
      launch counts zeroed just before and read just after; apply the
      bench's hard gate; time a few more solves; check the CUDA solve
      against the CPU solve on a small f64 problem;
-  4. print the ``kernels`` JSON line, then the card line, then the final
+  4. the batched Cholesky kernel: no solve path calls it, so it is driven
+     at its own entry point ``chol_solve_lanes`` (counts zeroed just
+     before, read just after) on the shape it was written for (B=256,
+     n=120, f32); then held against its plain version there, at the JAX
+     test's shape, at B=300 n=37 and on a non-SPD input; kernel, plain
+     version and ``torch.linalg.cholesky_ex`` + ``cholesky_solve`` timed;
+  5. the VI sub-bench (``bench.py --vi``) at full width through
+     ``batched_vi_solve`` (nf=8, nl=64, nobs=448, 16 IMU samples, B=256,
+     f32, 8 dogleg iterations, landmark Schur, 120 kept reduced slots),
+     counts zeroed and read around it; its gate, updates/s over 3 solves,
+     the latency of one B=1 solve (``bench.py --latency``), and a CUDA vs
+     CPU check on a small f64 problem;
+  6. print the ``kernels`` JSON line, then the card line, then the final
      ``{"ok": true, ...}`` line.
 
 It imports nothing of the JAX package.
@@ -40,6 +52,12 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}   # non-tensor-core
 PROJ_FLOPS_PER_OBS = 470
 FLAGSHIP = dict(nf=11, nl=352, nobs=2816, nsamp=8, cap=11, ns=14, nb=16)
 BATCH = 32
+# bench.py --vi: shape, batch and solver configuration (bench.py:270-287)
+VI = dict(nf=8, nl=64, nobs=448, n_samples=16)
+VI_BATCH = 256
+# the reduced block of the VI solve: 15·nf frame slots (the kernel's
+# docstring shape, B=256 n=120)
+CHOL_B, CHOL_N = 256, 120
 
 
 def _fail(msg):
@@ -326,6 +344,202 @@ def phase_small_reference(torch, dev):
           "(atol 1e-8)", flush=True)
 
 
+def _spd_systems(gen, B, n, not_spd=False):
+    """The recipe of tests/test_pallas_chol.py:15-18 (f32); ``not_spd``
+    makes the last pivot negative."""
+    import torch
+    A = torch.randn((B, n, 3 * n), generator=gen).float()
+    S = A @ A.transpose(-1, -2) / n + 0.5 * torch.eye(n)
+    if not_spd:
+        S[:, -1, -1] = -1.0
+    rhs = torch.randn((B, n), generator=gen).float()
+    return S.cuda(), rhs.cuda()
+
+
+def phase_chol(torch, card):
+    from rtk_visual_inertial_navigation_tpu_torch.ops.pallas_chol_lanes \
+        import chol_solve_lanes, chol_solve_lanes_plain
+    from rtk_visual_inertial_navigation_tpu_torch.ops.pallas_proj import \
+        LAUNCHES
+
+    gen = torch.Generator().manual_seed(2)
+    S, rhs = _spd_systems(gen, CHOL_B, CHOL_N)
+    # the entry point, counted: no solve path calls this kernel
+    LAUNCHES.clear()
+    chol_solve_lanes(S, rhs)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+
+    worst = 0.0
+    cases = [(CHOL_B, CHOL_N, False), (2, 48, False), (300, 37, False),
+             (4, 40, True)]
+    for B, n, not_spd in cases:
+        Sc, rc = (S, rhs) if (B, n) == (CHOL_B, CHOL_N) else \
+            _spd_systems(gen, B, n, not_spd)
+        x1 = chol_solve_lanes(Sc, rc)
+        x0 = chol_solve_lanes_plain(Sc, rc)
+        torch.cuda.synchronize()
+        label = f"chol B={B} n={n}{' not SPD' if not_spd else ''}"
+        if not bool(torch.isfinite(x1).all() and torch.isfinite(x0).all()):
+            _fail(f"{label}: non-finite x")
+        # same recurrence, f32 sums in another order: roundoff relative to
+        # the largest entry
+        err = (x1 - x0).abs().max().item()
+        atol = 1e-5 * max(x0.abs().max().item(), 1.0)
+        if not err <= atol:
+            _fail(f"{label}: kernel differs from the plain version by "
+                  f"{err:.3e} (atol {atol:.3e})")
+        if (B, n) == (CHOL_B, CHOL_N):
+            worst = err
+        if not not_spd:
+            r = torch.einsum("bij,bj->bi", Sc.double(), x1.double()) - rc
+            rel = (r.norm(dim=1) / rc.double().norm(dim=1)).max().item()
+            if not rel < 1e-4:        # tests/test_pallas_chol.py:31
+                _fail(f"{label}: relative residual {rel:.3e}")
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(S)
+        return torch.cholesky_solve(rhs[..., None], L)[..., 0]
+
+    xl = library()
+    torch.cuda.synchronize()
+    kern = lambda: chol_solve_lanes(S, rhs)
+    ms = _time_ms(kern, 50)
+    device_ms = _device_ms(kern, 20, "chol_lanes")
+    plain_ms = _time_ms(lambda: chol_solve_lanes_plain(S, rhs), 3)
+    library_ms = _time_ms(library, 50)
+    B, n = CHOL_B, CHOL_N
+    nbytes = 4 * B * (n * n + 2 * n)   # S and rhs read once, x written
+    flops = B * (n ** 3 / 3 + 2 * n ** 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    lib_err = (xl - chol_solve_lanes(S, rhs)).abs().max().item()
+    res = dict(launches=launches.get("chol_lanes", 0), max_abs_err=worst,
+               ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print(f"phase 4: chol_lanes kernel matches its plain version in "
+          f"{len(cases)} cases (max abs err {worst:.3e} at B={B} n={n}; "
+          f"vs torch.linalg {lib_err:.3e}); B={B} n={n} f32: kernel "
+          f"{ms:.4f} ms/call ({device_ms:.4f} ms device time), plain "
+          f"{plain_ms:.3f} ms, cholesky_ex+cholesky_solve {library_ms:.4f} "
+          f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+          f"{nbytes} bytes, {flops:.4g} FLOP) on {card}", flush=True)
+    return res
+
+
+def phase_vi(torch, dev, card):
+    from torch.utils._pytree import tree_map
+
+    from rtk_visual_inertial_navigation_tpu_torch.core.state import \
+        TangentLayout
+    from rtk_visual_inertial_navigation_tpu_torch.ops.pallas_proj import \
+        LAUNCHES
+    from rtk_visual_inertial_navigation_tpu_torch.parallel import (
+        batched_vi_solve, make_synthetic_windows)
+    from rtk_visual_inertial_navigation_tpu_torch.solver.gauss_newton \
+        import DoglegConfig
+
+    nf, nl = VI["nf"], VI["nl"]
+    lay = TangentLayout(nf=nf, nl=nl, nb=1, nc=2)
+    cfg = DoglegConfig(max_iters=8, schur_nl=nl,
+                       reduced_keep=tuple(range(15 * nf)))
+    t0 = time.time()
+    probs64 = make_synthetic_windows(0, VI_BATCH, dtype=torch.float64,
+                                     device=dev, **VI)
+    probs = tree_map(lambda x: x.float() if x.is_floating_point() else x,
+                     probs64)
+    torch.cuda.synchronize()
+    t_gen = time.time() - t0
+
+    LAUNCHES.clear()
+    t0 = time.time()
+    state, cost, nacc = batched_vi_solve(probs, lay, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_first = time.time() - t0
+    launches = dict(LAUNCHES)
+
+    # the bench's accuracy statistics (bench.py:298-304): frames 1+ start
+    # ~0.1 m off and must be pulled back
+    perr = (state.p - probs.truth.p).norm(dim=-1)[:, 1:]
+    worst = perr.max(dim=1).values
+    # the same windows in f64: the model and solver recover truth exactly
+    state64, cost64, nacc64 = batched_vi_solve(probs64, lay, cfg, device=dev)
+    perr64 = (state64.p - probs64.truth.p).norm(dim=-1)[:, 1:]
+    gate = dict(
+        cost_finite=bool(torch.isfinite(cost).all().item()),
+        nacc_min=int(nacc.min().item()), max_pos_err_m=worst.max().item(),
+        frac_windows_err_gt_1cm=(worst > 0.01).double().mean().item(),
+        median_window_err_m=worst.median().item(),
+        f64_max_pos_err_m=perr64.max().item(),
+        f64_nacc_min=int(nacc64.min().item()), launches=launches)
+    print(f"phase 5: VI solve B={VI_BATCH} f32: {json.dumps(gate)}; first "
+          f"call {t_first:.2f} s, synthesis {t_gen:.2f} s", flush=True)
+    # f32 limits: the f32 step factors the shifted system (A + 1e-5·I)
+    # and refines twice, as the JAX solver does; it converges slowly along
+    # weak directions, so after 8 iterations the JAX bench itself leaves
+    # about a tenth of its windows above 1 cm (PERF.md, VI sub-bench)
+    fails = []
+    if not gate["cost_finite"]:
+        fails.append("a cost is not finite")
+    if gate["nacc_min"] < 1:
+        fails.append("a window accepted no step")
+    if gate["max_pos_err_m"] > 0.05:
+        fails.append("max frame-1+ position error > 0.05 m")
+    if gate["frac_windows_err_gt_1cm"] > 1 / 4:
+        fails.append("more than 1/4 of the windows err > 1 cm")
+    if not gate["f64_max_pos_err_m"] <= 1e-6:
+        fails.append("the f64 solve misses truth by > 1e-6 m")
+    if tuple(state.p.shape) != (VI_BATCH, nf, 3):
+        fails.append("unexpected output shape")
+    if fails:
+        _fail("VI gate: " + "; ".join(fails))
+    del probs64, state64
+
+    reps = 3
+    t0 = time.time()
+    for _ in range(reps):
+        out = batched_vi_solve(probs, lay, cfg, device=dev)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    del out, probs
+    ups = VI_BATCH * reps / dt
+    print(f"phase 5: {ups:.3f} VI updates/s ({reps} timed solves of "
+          f"B={VI_BATCH}, {dt / reps * 1e3:.1f} ms per solve) on {card}",
+          flush=True)
+
+    # bench.py --latency: one window, the result fetched after each solve
+    one = make_synthetic_windows(0, 1, dtype=torch.float32, device=dev,
+                                 **VI)
+    batched_vi_solve(one, lay, cfg, device=dev)[1].cpu()
+    reps = 20
+    t0 = time.time()
+    for _ in range(reps):
+        batched_vi_solve(one, lay, cfg, device=dev)[1].cpu()
+    lat_ms = (time.time() - t0) / reps * 1e3
+    print(f"phase 5: B=1 VI solve latency {lat_ms:.1f} ms (mean of {reps}, "
+          f"host-synced) = {1e3 / lat_ms:.3f} updates/s on {card}",
+          flush=True)
+
+    # small f64 problem: the CUDA solve against the CPU solve
+    sh = dict(nf=4, nl=8, nobs=24, n_samples=8)
+    lay_s = TangentLayout(nf=4, nl=8, nb=1, nc=2)
+    cfg_s = DoglegConfig(max_iters=4, schur_nl=8)
+    small = make_synthetic_windows(7, 2, device="cpu", **sh)
+    ref = batched_vi_solve(small, lay_s, cfg_s, device="cpu")
+    got = batched_vi_solve(small, lay_s, cfg_s, device=dev)
+    for name, a, b in (("p", got[0].p, ref[0].p),
+                       ("landmarks", got[0].landmarks, ref[0].landmarks),
+                       ("cost", got[1], ref[1])):
+        err = (a.cpu() - b).abs().max().item()
+        if not err <= 1e-8:
+            _fail(f"small f64 VI solve: {name} on cuda differs from cpu by "
+                  f"{err:.3e}")
+    print("phase 5: small f64 VI solve on cuda matches the cpu solve "
+          "(atol 1e-8)", flush=True)
+    return dict(gate, updates_per_s=ups, latency_ms=lat_ms)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -344,7 +558,7 @@ def main():
           f"{torch.version.cuda}", flush=True)
     from rtk_visual_inertial_navigation_tpu_torch.ops import build
     t0 = time.time()
-    logs = build.build(["proj_segments"], verbose=True)
+    logs = build.build(["proj_segments", "chol_lanes"], verbose=True)
     for name, log in logs.items():
         print(f"phase 1: built {name} in {time.time() - t0:.1f} s\n"
               + log.strip(), flush=True)
@@ -354,10 +568,14 @@ def main():
     kres = phase_kernel_checks(torch, dev, card)
     launches = phase_flagship(torch, dev, card)
     phase_small_reference(torch, dev)
+    cres = phase_chol(torch, card)
+    phase_vi(torch, dev, card)
 
     n = launches.get("proj_segments", 0)
     if n == 0:
         _fail("the main path never launched the proj_segments kernel")
+    if cres["launches"] == 0:
+        _fail("chol_solve_lanes never launched the chol_lanes kernel")
     kernels = [dict(
         name="proj_segments", route="cuda",
         source=f"{PKG}/ops/csrc/proj_segments.cu",
@@ -365,7 +583,18 @@ def main():
         launches=n, max_abs_err=kres["max_abs_err"], ms=kres["ms"],
         plain_ms=kres["plain_ms"], bound_ms=kres["bound_ms"],
         bound_by=kres["bound_by"], library_ms=None,
-        device_ms=kres["device_ms"], phase="phase 2")]
+        device_ms=kres["device_ms"],
+        phase="phase 3 (flagship solve); timed in phase 2"), dict(
+        name="chol_lanes", route="cuda",
+        source=f"{PKG}/ops/csrc/chol_lanes.cu",
+        replaces="rtk_visual_inertial_navigation_tpu/ops/"
+                 "pallas_chol_lanes.py:40",
+        launches=cres["launches"], max_abs_err=cres["max_abs_err"],
+        ms=cres["ms"], plain_ms=cres["plain_ms"],
+        bound_ms=cres["bound_ms"], bound_by=cres["bound_by"],
+        library_ms=cres["library_ms"], device_ms=cres["device_ms"],
+        phase="phase 4: its own entry point chol_solve_lanes, since no "
+              "solve path of the JAX package calls it")]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

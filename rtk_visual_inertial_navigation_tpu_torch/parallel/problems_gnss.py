@@ -47,7 +47,7 @@ from ..solver.chain_factors import (ChainHidden, ChainMid, ChainRows,
 from ..solver.gauss_newton import DoglegConfig, assemble_gram, dogleg_solve
 from ..solver.marginalization import masked_cov_cols
 from ..solver.structured import blocks_from_segments
-from .problems import IMU_NOISE
+from .problems import IMU_NOISE, VIWindowProblem
 
 
 def _anchor_frame_np():
@@ -105,14 +105,17 @@ _NESTED = {
         b_dopp=GnssObsBatch, prior_x0=WindowState, truth=WindowState,
         hid_truth=ChainHidden),
     ChainStatic: dict(pre=Preintegrated, rows=ChainRows, mid=ChainMid),
+    VIWindowProblem: dict(state0=WindowState, pre=Preintegrated,
+                          prior_x0=WindowState, truth=WindowState),
 }
 
 
 def tree_from_numpy(cls, tree, device=None, dtype=torch.float64):
-    """Build container ``cls`` — ``RTKWindowProblem``, ``WindowState``,
-    ``ChainStatic``, ``ChainHidden``, ``Preintegrated`` or any other
-    NamedTuple of this package — from nested dicts of numpy arrays keyed by
-    field name, e.g. the JAX package's pytree of the same name after
+    """Build container ``cls`` — ``RTKWindowProblem``, ``VIWindowProblem``,
+    ``WindowState``, ``ChainStatic``, ``ChainHidden``, ``Preintegrated`` or
+    any other NamedTuple of this package — from nested dicts of numpy
+    arrays keyed by field name, e.g. the JAX package's pytree of the same
+    name after
     ``np.asarray`` over ``_asdict()``.  Floating arrays become ``dtype``,
     integer arrays int64, bools stay."""
     dev = resolve_device(device)

@@ -11,6 +11,7 @@ diagonal and zero gradient, so their step is zero.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Sequence
 
 import torch
@@ -24,6 +25,39 @@ def one_hot(ids, n: int, dtype):
     """One-hot over the last axis; out-of-range ids (e.g. masked rows
     shifted negative) give all-zero rows, as ``jax.nn.one_hot`` does."""
     return (ids[..., None] == torch.arange(n, device=ids.device)).to(dtype)
+
+
+def assemble(batches: Sequence[FactorBatch], dim: int, dtype=None):
+    """Scatter-add factor batches into (H, g, cost).
+
+    H = Σ JᵀJ, g = Σ Jᵀr, cost = ½ Σ|r|² over valid factors (already
+    masked into the batch rows); repeated indices accumulate.  gidx must
+    be in [0, dim).  dtype defaults to the first batch's residual dtype.
+    """
+    if dtype is None:
+        dtype = batches[0].res.dtype
+    b0 = batches[0]
+    lead = b0.res.shape[:-2]
+    dev = b0.res.device
+    H = torch.zeros(lead + (dim, dim), dtype=dtype, device=dev)
+    g = torch.zeros(lead + (dim,), dtype=dtype, device=dev)
+    cost = torch.zeros(lead, dtype=dtype, device=dev)
+    # index of each window, to offset its flat (dim, dim) / (dim,) block
+    win = torch.arange(math.prod(lead), device=dev).reshape(lead)
+    for b in batches:
+        jac, res = b.jac.to(dtype), b.res.to(dtype)
+        Hf = torch.einsum("...brd,...bre->...bde", jac, jac)
+        gf = torch.einsum("...brd,...br->...bd", jac, res)
+        w = win.reshape(lead + (1,) * 3)
+        hidx = (w * dim + b.gidx[..., :, :, None]) * dim \
+            + b.gidx[..., :, None, :]
+        H.view(-1).index_put_((hidx.flatten(),), Hf.flatten(),
+                              accumulate=True)
+        gidx = win.reshape(lead + (1, 1)) * dim + b.gidx
+        g.view(-1).index_put_((gidx.flatten(),), gf.flatten(),
+                              accumulate=True)
+        cost = cost + 0.5 * torch.sum(res * res, dim=(-2, -1))
+    return H, g, cost
 
 
 def assemble_gram(batches: Sequence[FactorBatch], dim: int, dtype=None):
@@ -84,10 +118,12 @@ class DoglegConfig(NamedTuple):
     # cost decrease is below f_tol·cost (it is then frozen while the rest
     # of the batch iterates).  0 runs every window max_iters times.
     f_tol: float = 0.0
-    # static indices (within the reduced block of a BlockHess) that can
-    # actually be nonzero; () = keep all.  (The JAX config's schur_nl —
-    # the dense-H Schur step — has no caller in the port: a Schur-
-    # structured Hessian is a BlockHess.)
+    # number of leading landmark slots of a DENSE H forming the 3x3-block-
+    # diagonal Schur group eliminated first (0 = plain dense solve; a
+    # BlockHess is Schur-structured by construction)
+    schur_nl: int = 0
+    # indices within the reduced block (offset by 3·nl) that can actually
+    # be nonzero; () = keep all.  Only these enter the Cholesky.
     reduced_keep: tuple = ()
     # dtype of the inner linear solve ("same" | "float32")
     step_dtype: str = "same"
@@ -154,6 +190,33 @@ def _gn_step_dense(H, g, step_dtype: str = "same"):
     return -s * _chol_solve_scaled(Hs, s * g, step_dtype)
 
 
+def keep_index(reduced_keep, device):
+    """``reduced_keep`` (a tuple, or an index tensor already made) as an
+    int64 index tensor on ``device``; None when it is None or empty (keep
+    all).  The solve makes it once: a tuple turned into a tensor at every
+    step would be a host-to-device copy per iteration."""
+    if reduced_keep is None or len(reduced_keep) == 0:
+        return None
+    return torch.as_tensor(reduced_keep, dtype=torch.int64, device=device)
+
+
+def _gn_step_schur(H, g, nl: int, reduced_keep=(), step_dtype: str = "same"):
+    """Gauss-Newton step of a dense H (..., D, D) eliminating the leading
+    3x3-block-diagonal landmark group first (DENSE_SCHUR semantics): the
+    dense H's blocks taken as a ``BlockHess``."""
+    from .block_hessian import BlockHess   # block_hessian imports this module
+    n3 = 3 * nl
+    lead = H.shape[:-2]
+    # diagonal 3x3 blocks: (..., nl, 3, nl, 3) -> (..., 3, 3, nl) ->
+    # (..., nl, 3, 3); indexing H[..., idx, :, idx, :] would move the
+    # landmark dim in front of the batch dims
+    Hll = torch.diagonal(H[..., :n3, :n3].reshape(lead + (nl, 3, nl, 3)),
+                         dim1=-4, dim2=-2).movedim(-1, -3)
+    Hlr = H[..., :n3, n3:].reshape(lead + (nl, 3, -1))
+    return BlockHess(Hll, Hlr, H[..., n3:, n3:]).gn_step(g, reduced_keep,
+                                                         step_dtype)
+
+
 def _norm(x):
     return torch.linalg.norm(x, dim=-1)
 
@@ -162,12 +225,14 @@ def _dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
-def _dogleg_step(H, g, radius, reduced_keep: tuple = (),
+def _dogleg_step(H, g, radius, schur_nl: int = 0, reduced_keep=(),
                  step_dtype: str = "same"):
     """Powell dogleg step for min ½ pᵀHp + gᵀp s.t. |p| ≤ radius, per
     window (g (..., D), radius (...,))."""
     if hasattr(H, "gn_step"):      # block-structured: Schur by construction
         p_gn = H.gn_step(g, reduced_keep, step_dtype)
+    elif schur_nl > 0:
+        p_gn = _gn_step_schur(H, g, schur_nl, reduced_keep, step_dtype)
     else:
         p_gn = _gn_step_dense(H, g, step_dtype)
     # NaN/Inf-proofing: a failed factorization degrades to the
@@ -230,7 +295,8 @@ def dogleg_solve(eval_fn: Callable, retract_fn: Callable, state0,
     def body(res_c, aux):
         state, H, g, cost, radius, n_acc = res_c
         Hm, gm, _ = apply_free_mask(H, g, free_mask)
-        p = _dogleg_step(Hm, gm, radius, cfg.reduced_keep, cfg.step_dtype)
+        p = _dogleg_step(Hm, gm, radius, cfg.schur_nl, keep,
+                         cfg.step_dtype)
         pred = -(_dot(gm, p) + 0.5 * _dot(p, _matvec(Hm, p)))
         if has_aux:
             cand = retract_fn(state, p, aux)
@@ -263,6 +329,7 @@ def dogleg_solve(eval_fn: Callable, retract_fn: Callable, state0,
                             n_acc + accept.to(torch.int32))
         return res_c, aux, converged
 
+    keep = keep_index(cfg.reduced_keep, cost0.device)
     carry = SolveResult(state0, H0, g0, cost0,
                         torch.full_like(cost0, cfg.initial_radius),
                         torch.zeros(cost0.shape, dtype=torch.int32,

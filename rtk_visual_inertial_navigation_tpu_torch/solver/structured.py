@@ -2,9 +2,10 @@
 
 Per-row outer products are reduced into per-frame / per-landmark /
 per-(frame, landmark) blocks by one-hot segment sums, and the blocks land
-in the Schur-structured Hessian by static slice placement.  This is the
-plain PyTorch path; on CUDA the fused kernel of ``ops/pallas_proj.py``
-produces the same segment dict ``S``.
+in the Schur-structured Hessian (``blocks_from_segments``) or in a dense
+(D, D) one (``projection_assemble``) by static slice placement.  This is
+the plain PyTorch path; on CUDA the fused kernel of ``ops/pallas_proj.py``
+produces the same segment dict ``S`` for the flagship solve.
 """
 
 from __future__ import annotations
@@ -119,3 +120,54 @@ def blocks_from_segments(lay: TangentLayout, S: dict, cost):
         g[:, i:i + 6] += S["GE"][:, c]
 
     return BlockHess(LL, Hlr, Hrr), g, cost
+
+
+def projection_assemble(lay: TangentLayout, f_ids, cam_ids, l_ids, res, jac):
+    """Dense (H (..., D, D), g (..., D), cost (...,)) of a projection batch:
+    the segment blocks of ``_proj_segments`` placed by static slices, no
+    scatter into (D, D)."""
+    S = _proj_segments(lay, f_ids, cam_ids, l_ids, res, jac)
+    dtype, device = res.dtype, res.device
+    lead = res.shape[:-2]
+    nf, nl, nc = lay.nf, lay.nl, lay.nc
+    n3, D = 3 * nl, lay.dim
+    fo, eo = lay.frame_off, lay.ext_off
+    nfr, ncr = nf * FRAME_DIM, nc * POSE_DIM
+    zeros = lambda *s: torch.zeros(lead + s, dtype=dtype, device=device)
+    H, g = zeros(D, D), zeros(D)
+
+    for f in range(nf):
+        i = fo + FRAME_DIM * f
+        H[..., i:i + 6, i:i + 6] += S["PP"][..., f, :, :]
+        g[..., i:i + 6] += S["GP"][..., f, :]
+    for c in range(nc):
+        i = eo + POSE_DIM * c
+        H[..., i:i + 6, i:i + 6] += S["EE"][..., c, :, :]
+        g[..., i:i + 6] += S["GE"][..., c, :]
+
+    # landmark 3x3 blocks on the diagonal of the (nl, 3, nl, 3) view
+    Hl = H[..., :n3, :n3].unflatten(-1, (nl, 3)).unflatten(-3, (nl, 3))
+    torch.diagonal(Hl, dim1=-4, dim2=-2).add_(S["LL"].movedim(-3, -1))
+    g[..., :n3] += S["GL"].flatten(-2)
+
+    # pose-landmark grid: (nf, 6, nl, 3) padded to (nf, 15, nl, 3)
+    PLg = zeros(nf, FRAME_DIM, nl, 3)
+    PLg[..., 0:6, :, :] = S["PL"].transpose(-3, -2)
+    block = PLg.reshape(lead + (nfr, n3))
+    H[..., fo:fo + nfr, :n3] += block
+    H[..., :n3, fo:fo + nfr] += block.transpose(-1, -2)
+
+    # pose-extrinsic grid: (nf, 6, nc, 6) padded to (nf, 15, nc, 6)
+    PEg = zeros(nf, FRAME_DIM, nc, POSE_DIM)
+    PEg[..., 0:6, :, :] = S["PE"].transpose(-3, -2)
+    block = PEg.reshape(lead + (nfr, ncr))
+    H[..., fo:fo + nfr, eo:eo + ncr] += block
+    H[..., eo:eo + ncr, fo:fo + nfr] += block.transpose(-1, -2)
+
+    # landmark-extrinsic grid: (nl, nc, 6, 3) -> (nl·3, nc·6)
+    LEg = S["LE"].permute(*range(len(lead)), -4, -1, -3, -2).reshape(
+        lead + (n3, ncr))
+    H[..., :n3, eo:eo + ncr] += LEg
+    H[..., eo:eo + ncr, :n3] += LEg.transpose(-1, -2)
+
+    return H, g, 0.5 * torch.sum(res * res, dim=(-2, -1))

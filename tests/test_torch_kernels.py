@@ -2,7 +2,8 @@
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (the kernels have no CPU mode; on the CPU the wrappers run the plain
-versions, which tests/test_torch_proj.py holds against the JAX reference).
+versions, which tests/test_torch_proj.py and tests/test_torch_chol.py hold
+against the JAX reference).
 This file imports neither jax nor the JAX package, so it also runs on a
 machine without JAX:
 
@@ -18,6 +19,8 @@ from rtk_visual_inertial_navigation_tpu_torch.core.state import \
 from rtk_visual_inertial_navigation_tpu_torch.factors.visual import \
     PROJ_SQRT_INFO
 from rtk_visual_inertial_navigation_tpu_torch.ops import lie
+from rtk_visual_inertial_navigation_tpu_torch.ops.pallas_chol_lanes import (
+    chol_solve_lanes, chol_solve_lanes_plain)
 from rtk_visual_inertial_navigation_tpu_torch.ops.pallas_proj import (
     proj_segments_pallas, proj_segments_plain)
 
@@ -67,3 +70,45 @@ def test_proj_segments_kernel_matches_plain(dtype, want_ext, cauchy_a):
         torch.testing.assert_close(got, ref, rtol=rtol, atol=atol, msg=k)
     if not want_ext:
         assert not any(bool(S1[k].any()) for k in ext)
+
+
+def _spd_systems(seed, B, n, not_spd=False):
+    """The recipe of tests/test_pallas_chol.py:15-18; ``not_spd`` makes the
+    last pivot negative (the 1e-30 pivot floor keeps x finite)."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B, n, 3 * n)).astype(np.float32)
+    S = A @ np.swapaxes(A, -1, -2) / n + 0.5 * np.eye(n, dtype=np.float32)
+    if not_spd:
+        S[:, -1, -1] = -1.0
+    rhs = rng.normal(size=(B, n)).astype(np.float32)
+    return torch.from_numpy(S).cuda(), torch.from_numpy(rhs).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,not_spd", [
+    (256, 120, False), (2, 48, False), (300, 37, False), (4, 40, True)])
+def test_chol_lanes_kernel_matches_plain(B, n, not_spd):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    S, rhs = _spd_systems(6, B, n, not_spd)
+    x1 = chol_solve_lanes(S, rhs)
+    x0 = chol_solve_lanes_plain(S, rhs)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x1).all())
+    # same recurrence, f32 sums in another order: roundoff relative to the
+    # largest entry
+    torch.testing.assert_close(x1, x0, rtol=0,
+                               atol=1e-5 * max(x0.abs().max().item(), 1.0))
+    if not not_spd:
+        r = torch.einsum("bij,bj->bi", S.double(), x1.double()) - rhs
+        rel = r.norm(dim=1) / rhs.double().norm(dim=1)
+        assert rel.max().item() < 1e-4
+
+
+@pytest.mark.cuda
+def test_chol_lanes_kernel_refuses_too_large_n():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    S, rhs = _spd_systems(7, 1, 300)
+    with pytest.raises(ValueError, match="shared memory"):
+        chol_solve_lanes(S, rhs)

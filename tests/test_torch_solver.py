@@ -80,17 +80,24 @@ def test_block_hessian_step_and_cov_match_jax(step_dtype, keep):
     t_cov = th.tail_cov(T(free), T(cols))
     t_mv = th.matvec(T(g))
     tol = 1e-4 if step_dtype == "float32" else 1e-10
-    for b in range(B):
-        jh = jbh.BlockHess(*(jnp.asarray(x[b]) for x in H))
-        jm, jg, jfree = jh.mask(jnp.asarray(g[b]), jnp.asarray(free[b]))
-        for k in range(3):
-            _close(tm[k][b], jm[k])
-        np.testing.assert_array_equal(tfree[b], np.asarray(jfree))
-        _close(t_step[b], jm.gn_step(jg, keep, step_dtype), tol)
-        _close(t_cov[b], jh.tail_cov(jnp.asarray(free[b]),
-                                     jnp.asarray(cols[b])))
-        _close(t_mv[b], jh.matvec(jnp.asarray(g[b])))
-        _close(th.diagonal()[b], jh.diagonal())
+
+    # the JAX reference per window, vmapped and compiled once (eager JAX
+    # dispatch costs seconds of the test clock)
+    def ref(Hll, Hlr, Hrr, gb, fb, cb):
+        jh = jbh.BlockHess(Hll, Hlr, Hrr)
+        jm, jg, jfree = jh.mask(gb, fb)
+        return (jm, jfree, jm.gn_step(jg, keep, step_dtype),
+                jh.tail_cov(fb, cb), jh.matvec(gb), jh.diagonal())
+
+    jm, jfree, j_step, j_cov, j_mv, j_diag = jax.jit(jax.vmap(ref))(
+        *map(jnp.asarray, (*H, g, free, cols)))
+    for k in range(3):
+        _close(tm[k], jm[k])
+    np.testing.assert_array_equal(tfree, np.asarray(jfree))
+    _close(t_step, j_step, tol)
+    _close(t_cov, j_cov)
+    _close(t_mv, j_mv)
+    _close(th.diagonal(), j_diag)
 
 
 def test_assemble_gram_matches_jax():
@@ -106,13 +113,11 @@ def test_assemble_gram_matches_jax():
         tb.append(FactorBatch(T(res), T(jac), T(gidx), T(valid)))
         jb.append((res, jac, gidx, valid))
     H, g, cost = tgn.assemble_gram(tb, dim)
-    for b in range(B):
-        batches = [JFactorBatch(*(jnp.asarray(x[b]) for x in spec))
-                   for spec in jb]
-        jH, jg, jc = jgn.assemble_gram(batches, dim)
-        _close(H[b], jH)
-        _close(g[b], jg)
-        _close(cost[b], jc)
+    jH, jg, jc = jax.jit(jax.vmap(lambda bs: jgn.assemble_gram(bs, dim)))(
+        [JFactorBatch(*map(jnp.asarray, spec)) for spec in jb])
+    _close(H, jH)
+    _close(g, jg)
+    _close(cost, jc)
 
 
 @pytest.mark.parametrize("d,dtype", [(15, "float64"), (20, "float64"),
@@ -124,10 +129,13 @@ def test_spd_solve_matches_jax(d, dtype):
     M = 0.5 * (M + M.transpose(0, 2, 1))
     rhs = rng.normal(size=(B, d, 3)).astype(dtype)
     got = tmg.spd_solve(T(M), T(rhs))
-    ref = jax.vmap(jmg.spd_solve)(jnp.asarray(M), jnp.asarray(rhs))
+    ref, ref_inv = jax.jit(lambda m, r: (
+        jax.vmap(jmg.spd_solve)(m, r),
+        j_spd_inv_small(m) if d <= 16 else None))(jnp.asarray(M),
+                                                   jnp.asarray(rhs))
     _close(got, ref, 1e-4 if dtype == "float32" else 1e-9)
     if d <= 16:
-        _close(spd_inv_small(T(M)), j_spd_inv_small(jnp.asarray(M)), 1e-9)
+        _close(spd_inv_small(T(M)), ref_inv, 1e-9)
     _close(tgn.inv33(T(M[..., :3, :3])), jgn.inv33(jnp.asarray(
         M[..., :3, :3])), 1e-9)
 
@@ -149,13 +157,13 @@ def test_chain_blocks_into_matches_jax():
     g0 = rng.normal(size=(B, lay.dim))
     bh, g = tbh.chain_blocks_into(H0, T(g0), T(Hb), T(gb), T(left),
                                   T(right), lay)
-    for b in range(B):
-        jH0 = jbh.BlockHess(*(jnp.asarray(x[b].numpy()) for x in H0))
-        jb, jg = jbh.chain_blocks_into(
-            jH0, jnp.asarray(g0[b]), jnp.asarray(Hb[b]), jnp.asarray(gb[b]),
-            jnp.asarray(left[b]), jnp.asarray(right[b]), jlay)
-        _close(bh.Hrr[b], jb.Hrr)
-        _close(g[b], jg)
+    jb, jg = jax.jit(jax.vmap(
+        lambda h0, *a: jbh.chain_blocks_into(jbh.BlockHess(*h0), *a,
+                                             jlay)))(
+        tuple(jnp.asarray(x.numpy()) for x in H0),
+        *map(jnp.asarray, (g0, Hb, gb, left, right)))
+    _close(bh.Hrr, jb.Hrr)
+    _close(g, jg)
 
 
 def _toy(A, c, x, lib):
