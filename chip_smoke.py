@@ -25,9 +25,10 @@ Phases (any failure exits non-zero and prints no result line):
   5. the VI sub-bench (``bench.py --vi``) at full width through
      ``batched_vi_solve`` (nf=8, nl=64, nobs=448, 16 IMU samples, B=256,
      f32, 8 dogleg iterations, landmark Schur, 120 kept reduced slots),
-     counts zeroed and read around it; its gate, updates/s over 3 solves,
-     the latency of one B=1 solve (``bench.py --latency``), and a CUDA vs
-     CPU check on a small f64 problem;
+     counts zeroed and read around it; its gate (each window held to the
+     same window solved on the host CPU), updates/s over 3 solves, the
+     latency of one B=1 solve (``bench.py --latency``), and a CUDA vs CPU
+     check on a small f64 problem;
   6. print the ``kernels`` JSON line, then the card line, then the final
      ``{"ok": true, ...}`` line.
 
@@ -55,6 +56,9 @@ BATCH = 32
 # bench.py --vi: shape, batch and solver configuration (bench.py:270-287)
 VI = dict(nf=8, nl=64, nobs=448, n_samples=16)
 VI_BATCH = 256
+# a window's f32 frame-1+ error on the card may differ from the CPU solve's
+# by this much (the tolerance of tests/test_torch_vi_f32.py against JAX)
+VI_ERR_TOL_M = 5e-3
 # the reduced block of the VI solve: 15·nf frame slots (the kernel's
 # docstring shape, B=256 n=120)
 CHOL_B, CHOL_N = 256, 120
@@ -356,6 +360,18 @@ def _spd_systems(gen, B, n, not_spd=False):
     return S.cuda(), rhs.cuda()
 
 
+def _chol_bytes(B, n, sector=32):
+    """Bytes a solve of B contiguous f32 systems must move: the lower
+    triangle of each symmetric S (the solve reads nothing else of it),
+    counted in the 32-byte sectors the rows span, rhs read once, x written
+    once."""
+    import torch
+    r, c = torch.tril_indices(n, n)
+    elem = (torch.arange(B)[:, None] * (n * n) + (r * n + c)).flatten()
+    s_bytes = sector * torch.unique(elem * 4 // sector).numel()
+    return s_bytes + 2 * 4 * B * n
+
+
 def phase_chol(torch, card):
     from rtk_visual_inertial_navigation_tpu_torch.ops.pallas_chol_lanes \
         import chol_solve_lanes, chol_solve_lanes_plain
@@ -409,7 +425,7 @@ def phase_chol(torch, card):
     plain_ms = _time_ms(lambda: chol_solve_lanes_plain(S, rhs), 3)
     library_ms = _time_ms(library, 50)
     B, n = CHOL_B, CHOL_N
-    nbytes = 4 * B * (n * n + 2 * n)   # S and rhs read once, x written
+    nbytes = _chol_bytes(B, n)
     flops = B * (n ** 3 / 3 + 2 * n ** 2)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["float32"] * 1e3
@@ -461,29 +477,50 @@ def phase_vi(torch, dev, card):
 
     # the bench's accuracy statistics (bench.py:298-304): frames 1+ start
     # ~0.1 m off and must be pulled back
-    perr = (state.p - probs.truth.p).norm(dim=-1)[:, 1:]
-    worst = perr.max(dim=1).values
+    def window_err(st, pr):
+        return (st.p - pr.truth.p).norm(dim=-1)[:, 1:].max(dim=1).values
+
+    worst = window_err(state, probs)
+    # the same windows on the host CPU: the plain path, which
+    # tests/test_torch_vi_f32.py holds window by window against the JAX f32
+    # solve of the same problem
+    t0 = time.time()
+    probs_cpu = tree_map(lambda x: x.cpu(), probs)
+    worst_cpu = window_err(batched_vi_solve(probs_cpu, lay, cfg,
+                                            device="cpu")[0], probs_cpu)
+    t_cpu = time.time() - t0
     # the same windows in f64: the model and solver recover truth exactly
     state64, cost64, nacc64 = batched_vi_solve(probs64, lay, cfg, device=dev)
-    perr64 = (state64.p - probs64.truth.p).norm(dim=-1)[:, 1:]
     gate = dict(
         cost_finite=bool(torch.isfinite(cost).all().item()),
         nacc_min=int(nacc.min().item()), max_pos_err_m=worst.max().item(),
         frac_windows_err_gt_1cm=(worst > 0.01).double().mean().item(),
         median_window_err_m=worst.median().item(),
-        f64_max_pos_err_m=perr64.max().item(),
+        cpu_max_pos_err_m=worst_cpu.max().item(),
+        cpu_frac_windows_err_gt_1cm=(worst_cpu > 0.01).double().mean()
+        .item(),
+        max_window_err_diff_vs_cpu_m=(worst.cpu() - worst_cpu).abs().max()
+        .item(),
+        f64_max_pos_err_m=window_err(state64, probs64).max().item(),
         f64_nacc_min=int(nacc64.min().item()), launches=launches)
     print(f"phase 5: VI solve B={VI_BATCH} f32: {json.dumps(gate)}; first "
-          f"call {t_first:.2f} s, synthesis {t_gen:.2f} s", flush=True)
-    # f32 limits: the f32 step factors the shifted system (A + 1e-5·I)
-    # and refines twice, as the JAX solver does; it converges slowly along
-    # weak directions, so after 8 iterations the JAX bench itself leaves
-    # about a tenth of its windows above 1 cm (PERF.md, VI sub-bench)
+          f"call {t_first:.2f} s, synthesis {t_gen:.2f} s, the same windows "
+          f"on the CPU {t_cpu:.2f} s", flush=True)
+    # f32 limits.  The f32 step factors the shifted system A + 1e-5·I, as
+    # the JAX solver does, and 8 iterations leave a few cm along weak
+    # directions.  On the JAX generator's problems at B=128 the JAX f32
+    # solve leaves 11.7 % and 18.8 % of the windows above 1 cm (max
+    # 0.049 m), and the port's CPU solve of the same problems matches it
+    # window by window (PERF.md §6, tests/test_torch_vi_f32.py); here each
+    # window is held to the CPU solve of the same window.
     fails = []
     if not gate["cost_finite"]:
         fails.append("a cost is not finite")
     if gate["nacc_min"] < 1:
         fails.append("a window accepted no step")
+    if not gate["max_window_err_diff_vs_cpu_m"] <= VI_ERR_TOL_M:
+        fails.append(f"a window's error differs from the CPU solve's by > "
+                     f"{VI_ERR_TOL_M} m")
     if gate["max_pos_err_m"] > 0.05:
         fails.append("max frame-1+ position error > 0.05 m")
     if gate["frac_windows_err_gt_1cm"] > 1 / 4:

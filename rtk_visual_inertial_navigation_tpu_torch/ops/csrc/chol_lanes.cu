@@ -18,9 +18,11 @@
 // barrier per column).  At n = 120 a block uses 59 KB of shared memory, so
 // three blocks fit on an SM and a batch of 256 systems is resident at once.
 //
-// Bound: bytes.  Each system reads n² + n floats and writes n; the
-// arithmetic (n³/3 + 2n² FLOP) is below the memory time at f32 peak.  This
-// simple kernel is latency-bound instead (2n + 2n barriers per system).
+// Bound: bytes, narrowly.  Each system reads the lower triangle of S (the
+// 32-byte sectors its rows span: 960 of the 1800 of a full 120x120 matrix)
+// and n floats of rhs, and writes n; the arithmetic (n³/3 + 2n² FLOP) takes
+// about as long at f32 peak.  This simple kernel is latency-bound instead
+// (2n + 2n barriers per system).
 
 #include <cuda_runtime.h>
 #include <math.h>

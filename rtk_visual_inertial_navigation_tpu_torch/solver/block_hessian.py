@@ -22,8 +22,7 @@ import torch
 from torch.utils._pytree import tree_map
 
 from ..core.state import FRAME_DIM
-from .gauss_newton import (_chol_solve_scaled, _jacobi_scale, inv33,
-                           keep_index, one_hot)
+from .gauss_newton import _chol_solve_scaled, _jacobi_scale, inv33, one_hot
 
 
 class BlockHess(NamedTuple):
@@ -108,17 +107,15 @@ class BlockHess(NamedTuple):
                                     HinvHlr)
         return Hll_inv, HinvHlr, S
 
-    def gn_step(self, g, reduced_keep=(),
-                step_dtype: str = "same") -> torch.Tensor:
-        """Gauss-Newton step via landmark Schur elimination.  With
-        ``reduced_keep`` (a tuple, or the index tensor ``dogleg_solve``
-        makes once), only those reduced slots enter the Cholesky."""
+    def gn_step(self, g, keep=None, step_dtype: str = "same") -> torch.Tensor:
+        """Gauss-Newton step via landmark Schur elimination.  With ``keep``
+        (an int64 index tensor of reduced slots, on g's device), only those
+        slots enter the Cholesky; None keeps all."""
         Hll_inv, HinvHlr, S = self._schur()
         gl = g[..., :self.n3].unflatten(-1, (self.nl, 3))
         gr = g[..., self.n3:]
         Hinv_gl = (Hll_inv @ gl[..., None])[..., 0]
         rhs = gr - torch.einsum("...lir,...li->...r", self.Hlr, Hinv_gl)
-        keep = keep_index(reduced_keep, g.device)
         if keep is not None:
             Sk = S[..., keep, :][..., keep]
             rk = rhs[..., keep]

@@ -190,20 +190,11 @@ def _gn_step_dense(H, g, step_dtype: str = "same"):
     return -s * _chol_solve_scaled(Hs, s * g, step_dtype)
 
 
-def keep_index(reduced_keep, device):
-    """``reduced_keep`` (a tuple, or an index tensor already made) as an
-    int64 index tensor on ``device``; None when it is None or empty (keep
-    all).  The solve makes it once: a tuple turned into a tensor at every
-    step would be a host-to-device copy per iteration."""
-    if reduced_keep is None or len(reduced_keep) == 0:
-        return None
-    return torch.as_tensor(reduced_keep, dtype=torch.int64, device=device)
-
-
-def _gn_step_schur(H, g, nl: int, reduced_keep=(), step_dtype: str = "same"):
+def _gn_step_schur(H, g, nl: int, keep=None, step_dtype: str = "same"):
     """Gauss-Newton step of a dense H (..., D, D) eliminating the leading
     3x3-block-diagonal landmark group first (DENSE_SCHUR semantics): the
-    dense H's blocks taken as a ``BlockHess``."""
+    dense H's blocks taken as a ``BlockHess``.  ``keep``: see
+    ``BlockHess.gn_step``."""
     from .block_hessian import BlockHess   # block_hessian imports this module
     n3 = 3 * nl
     lead = H.shape[:-2]
@@ -213,8 +204,7 @@ def _gn_step_schur(H, g, nl: int, reduced_keep=(), step_dtype: str = "same"):
     Hll = torch.diagonal(H[..., :n3, :n3].reshape(lead + (nl, 3, nl, 3)),
                          dim1=-4, dim2=-2).movedim(-1, -3)
     Hlr = H[..., :n3, n3:].reshape(lead + (nl, 3, -1))
-    return BlockHess(Hll, Hlr, H[..., n3:, n3:]).gn_step(g, reduced_keep,
-                                                         step_dtype)
+    return BlockHess(Hll, Hlr, H[..., n3:, n3:]).gn_step(g, keep, step_dtype)
 
 
 def _norm(x):
@@ -225,14 +215,15 @@ def _dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
-def _dogleg_step(H, g, radius, schur_nl: int = 0, reduced_keep=(),
+def _dogleg_step(H, g, radius, schur_nl: int = 0, keep=None,
                  step_dtype: str = "same"):
     """Powell dogleg step for min ½ pᵀHp + gᵀp s.t. |p| ≤ radius, per
-    window (g (..., D), radius (...,))."""
+    window (g (..., D), radius (...,)).  ``keep``: the kept reduced slots
+    as an index tensor, or None for all."""
     if hasattr(H, "gn_step"):      # block-structured: Schur by construction
-        p_gn = H.gn_step(g, reduced_keep, step_dtype)
+        p_gn = H.gn_step(g, keep, step_dtype)
     elif schur_nl > 0:
-        p_gn = _gn_step_schur(H, g, schur_nl, reduced_keep, step_dtype)
+        p_gn = _gn_step_schur(H, g, schur_nl, keep, step_dtype)
     else:
         p_gn = _gn_step_dense(H, g, step_dtype)
     # NaN/Inf-proofing: a failed factorization degrades to the
@@ -329,7 +320,11 @@ def dogleg_solve(eval_fn: Callable, retract_fn: Callable, state0,
                             n_acc + accept.to(torch.int32))
         return res_c, aux, converged
 
-    keep = keep_index(cfg.reduced_keep, cost0.device)
+    # the kept reduced slots as an index on the device, made once per solve
+    # (a tuple turned into a tensor at every step would be a host-to-device
+    # copy per iteration)
+    keep = (torch.tensor(cfg.reduced_keep, dtype=torch.int64,
+                         device=cost0.device) if cfg.reduced_keep else None)
     carry = SolveResult(state0, H0, g0, cost0,
                         torch.full_like(cost0, cfg.initial_radius),
                         torch.zeros(cost0.shape, dtype=torch.int32,

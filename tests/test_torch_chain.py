@@ -11,6 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_jax_ref import per_window
+from test_torch_jax_ref import to_numpy as _np
 
 from rtk_visual_inertial_navigation_tpu.core.state import \
     TangentLayout as JLayout
@@ -37,12 +39,6 @@ PBG = np.array([0.02, -0.01, 0.03])
 G = np.array([0.0, 0.0, 9.81])
 
 
-def _np(x):
-    if hasattr(x, "_asdict"):
-        return {k: _np(v) for k, v in x._asdict().items()}
-    return np.asarray(x)
-
-
 def _close(got, ref, tol=1e-9, err_msg=""):
     """Roundoff relative to the largest entry of each array."""
     ref = np.asarray(ref)
@@ -64,23 +60,19 @@ def ref():
     hid = jp.hid0
     pbg, g = jnp.asarray(PBG), jnp.asarray(G)
 
-    @jax.jit
-    def run(win, hid, st, dx):
-        def one(w, h, s, d):
-            leaves, _, _ = jax.vmap(
-                lambda hh, ss: jcf.chain_leaves(w, hh, ss, R_e, pbg, g, CAP,
-                                                NB))(h, s)
-            F = jax.vmap(jchain.scan_chain_tail_prefix)(leaves)
-            c = jax.vmap(jchain.condensed_from_prefix)(F, s.n_leaves)
-            Hb, gb, gidx, cost = jcf.chain_contrib(w, h, s, lay, R_e, pbg,
-                                                   g, CAP)
-            return leaves, F, c, (Hb, gb, gidx, cost)
-        return jax.vmap(one)(win, hid, st, dx)
+    def one(w, h, s):
+        leaves, _, _ = jax.vmap(
+            lambda hh, ss: jcf.chain_leaves(w, hh, ss, R_e, pbg, g, CAP,
+                                            NB))(h, s)
+        F = jax.vmap(jchain.scan_chain_tail_prefix)(leaves)
+        c = jax.vmap(jchain.condensed_from_prefix)(F, s.n_leaves)
+        Hb, gb, gidx, cost = jcf.chain_contrib(w, h, s, lay, R_e, pbg, g,
+                                               CAP)
+        return leaves, F, c, (Hb, gb, gidx, cost)
 
-    dx = np.random.default_rng(0).normal(size=(B, lay.dim)) * 0.01
-    leaves, F, c, contrib = run(win, hid, jp.st, jnp.asarray(dx))
+    leaves, F, c, contrib = per_window(one, (win, hid, jp.st), B)
     return dict(jp=jp, tp=problem_from_numpy(_np(jp), device="cpu"),
-                leaves=leaves, F=F, c=c, contrib=contrib, dx=dx)
+                leaves=leaves, F=F, c=c, contrib=contrib)
 
 
 def _leaves(ref):
@@ -179,9 +171,9 @@ def test_chain_leaves_with_mid_marginal_match_jax(ref):
                                               for k, v in mid.items()}))
     _, R_e = _anchor_frame()
     pbg, g = jnp.asarray(PBG), jnp.asarray(G)
-    jleaves, _, jcost = jax.jit(jax.vmap(lambda w, h, s: jax.vmap(
+    jleaves, _, jcost = per_window(lambda w, h, s: jax.vmap(
         lambda hh, ss: jcf.chain_leaves(w, hh, ss, R_e, pbg, g, CAP, NB))(
-            h, s)))(jp.state0, jp.hid0, jst)
+            h, s), (jp.state0, jp.hid0, jst), B)
     tp = ref["tp"]
     tst = tp.st._replace(mid=tree_from_numpy(tcf.ChainMid, mid, "cpu"))
     leaves, _, cost = tcf.chain_leaves(

@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_jax_ref import to_numpy as _np
 
 from rtk_visual_inertial_navigation_tpu.factors import gnss as jgnss
 from rtk_visual_inertial_navigation_tpu.factors.inertial import \
@@ -25,12 +26,6 @@ torch.set_num_threads(1)
 
 NF, NL, NOBS, NSAMP, CAP, NS, NB = 5, 12, 40, 6, 4, 6, 8
 B = 2
-
-
-def _np(x):
-    if hasattr(x, "_asdict"):
-        return {k: _np(v) for k, v in x._asdict().items()}
-    return np.asarray(x)
 
 
 @pytest.fixture(scope="module")

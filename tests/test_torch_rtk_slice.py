@@ -2,8 +2,9 @@
 tests/test_parallel_rtk.py):
 
   - the JAX generator's problem through ``problem_from_numpy`` and the
-    port's ``batched_rtk_solve(device="cpu")`` matches the JAX
-    ``batched_rtk_solve`` at the tolerances of test_parallel_rtk.py:79-85;
+    port's ``batched_rtk_solve(device="cpu")`` matches the JAX window
+    solve that ``batched_rtk_solve`` vmaps, at the tolerances of
+    test_parallel_rtk.py:79-85;
   - the port's own generator (torch.Generator streams) is recovered to
     truth at the thresholds of test_parallel_rtk.py:43-63;
   - importing the port loads neither jax nor the JAX package.
@@ -17,11 +18,15 @@ import jax
 import numpy as np
 import pytest
 import torch
+from test_torch_jax_ref import per_window
+from test_torch_jax_ref import to_numpy as _np
 
 from rtk_visual_inertial_navigation_tpu.core.state import \
     TangentLayout as JLayout
-from rtk_visual_inertial_navigation_tpu.parallel import (
-    batched_rtk_solve as jax_batched_rtk_solve, make_synthetic_rtk_windows)
+from rtk_visual_inertial_navigation_tpu.parallel import \
+    make_synthetic_rtk_windows
+from rtk_visual_inertial_navigation_tpu.parallel.problems_gnss import \
+    _solve_one_rtk
 from rtk_visual_inertial_navigation_tpu.solver import \
     DoglegConfig as JDoglegConfig
 from rtk_visual_inertial_navigation_tpu_torch.core.state import \
@@ -38,21 +43,16 @@ B = 2
 LAY = TangentLayout(nf=NF, nl=NL, nb=NB, nc=2)
 
 
-def _np(x):
-    if hasattr(x, "_asdict"):
-        return {k: _np(v) for k, v in x._asdict().items()}
-    return np.asarray(x)
-
-
 @pytest.fixture(scope="module")
 def jax_run():
+    """The JAX problem and its solve: ``batched_rtk_solve`` is a vmap of
+    ``_solve_one_rtk``."""
     probs = make_synthetic_rtk_windows(
         jax.random.PRNGKey(7), B, nf=NF, nl=NL, nobs=NOBS, nsamp=NSAMP,
         cap=CAP, ns=NS, nb=NB)
     lay = JLayout(nf=NF, nl=NL, nb=NB, nc=2)
-    out = jax.jit(lambda p: jax_batched_rtk_solve(
-        p, lay, JDoglegConfig(max_iters=4), CAP))(probs)
-    return probs, out
+    return probs, per_window(lambda p: _solve_one_rtk(
+        p, lay, JDoglegConfig(max_iters=4), CAP), (probs,), B)
 
 
 def test_port_matches_jax_batched_rtk_solve(jax_run):

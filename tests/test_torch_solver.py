@@ -76,7 +76,7 @@ def test_block_hessian_step_and_cov_match_jax(step_dtype, keep):
     th = tbh.BlockHess(*map(T, H))
     cols = np.tile(3 * NL + np.arange(DR - 3, DR), (B, 1))
     tm, tg, tfree = th.mask(T(g), T(free))
-    t_step = tm.gn_step(tg, keep, step_dtype)
+    t_step = tm.gn_step(tg, torch.tensor(keep) if keep else None, step_dtype)
     t_cov = th.tail_cov(T(free), T(cols))
     t_mv = th.matvec(T(g))
     tol = 1e-4 if step_dtype == "float32" else 1e-10

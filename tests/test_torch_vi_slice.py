@@ -18,6 +18,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_jax_ref import per_window
+from test_torch_jax_ref import to_numpy as _np
 
 from rtk_visual_inertial_navigation_tpu.core.state import \
     TangentLayout as JLayout
@@ -25,9 +27,10 @@ from rtk_visual_inertial_navigation_tpu.factors.base import \
     FactorBatch as JFactorBatch
 from rtk_visual_inertial_navigation_tpu.factors.priors import \
     MargPrior as JMargPrior
-from rtk_visual_inertial_navigation_tpu.parallel import (
-    batched_vi_solve as jax_batched_vi_solve, make_synthetic_windows as
-    jax_make_synthetic_windows)
+from rtk_visual_inertial_navigation_tpu.parallel import \
+    make_synthetic_windows as jax_make_synthetic_windows
+from rtk_visual_inertial_navigation_tpu.parallel.mesh import \
+    _solve_one as jax_solve_one
 from rtk_visual_inertial_navigation_tpu.solver import gauss_newton as jgn
 from rtk_visual_inertial_navigation_tpu.solver import structured as jst
 from rtk_visual_inertial_navigation_tpu_torch.core.state import (
@@ -56,12 +59,6 @@ KEEP = tuple(range(15 * NF))
 T = torch.from_numpy
 
 
-def _np(x):
-    if hasattr(x, "_asdict"):
-        return {k: _np(v) for k, v in x._asdict().items()}
-    return np.asarray(x)
-
-
 def _close(got, ref, tol=1e-10):
     """Roundoff relative to the largest entry."""
     ref = np.asarray(ref)
@@ -71,12 +68,13 @@ def _close(got, ref, tol=1e-10):
 
 @pytest.fixture(scope="module")
 def jax_run():
-    """The JAX problem and its JAX solve (tests/test_parallel.py:16-22)."""
+    """The JAX problem and its JAX solve (tests/test_parallel.py:16-22):
+    ``batched_vi_solve`` is a vmap of ``_solve_one``."""
     probs = jax_make_synthetic_windows(jax.random.PRNGKey(0), B, NF, NL,
                                        NOBS, NSAMP)
     cfg = jgn.DoglegConfig(max_iters=4, schur_nl=NL)
-    return probs, jax.jit(lambda p: jax_batched_vi_solve(p, JLAY, cfg))(
-        probs)
+    return probs, per_window(lambda p: jax_solve_one(p, JLAY, cfg),
+                             (probs,), B)
 
 
 @pytest.mark.parametrize("keep", [(), KEEP], ids=["all", "keep"])
@@ -216,7 +214,8 @@ def test_gn_step_schur_matches_jax(keep):
         H[:, :, out] = 0.0
         H[:, out, out] = 1.0
         g[:, out] = 0.0
-    step = tgn._gn_step_schur(T(H), T(g), nl, keep)
+    step = tgn._gn_step_schur(T(H), T(g), nl,
+                              torch.tensor(keep) if keep else None)
     assert bool(torch.isfinite(step).all())
     ref = jax.jit(jax.vmap(lambda h, v: jgn._gn_step_schur(h, v, nl, keep)))(
         jnp.asarray(H), jnp.asarray(g))
