@@ -34,24 +34,30 @@ def _nvcc() -> str:
     return str(path)
 
 
-def library_path(name: str) -> Path:
+def _flags(defines=()) -> list:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def library_path(name: str, defines=()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{tag[:12]}.so"
+    tag = hashlib.sha256(src + " ".join(_flags(defines)).encode())
+    return BUILD_DIR / f"lib{name}-{tag.hexdigest()[:12]}.so"
 
 
-def build(names, verbose: bool = False) -> dict:
+def build(names, verbose: bool = False, defines=()) -> dict:
     """Compile every library in ``names`` that is not built yet, in
-    parallel.  Returns {name: compiler output} for the ones compiled
-    (``verbose`` adds ptxas register/spill reports)."""
+    parallel, with the preprocessor ``defines``.  Returns {name: compiler
+    output} for the ones compiled (``verbose`` adds ptxas register/spill
+    reports)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+        cmd = [_nvcc(), *_flags(defines),
+               *(["-Xptxas=-v"] if verbose else []),
                "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -69,7 +75,8 @@ def build(names, verbose: bool = False) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    build([name])
-    return ctypes.CDLL(str(library_path(name)))
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` built with ``defines``,
+    built first if needed."""
+    build([name], defines=defines)
+    return ctypes.CDLL(str(library_path(name, defines)))

@@ -37,7 +37,7 @@ from ..factors.inertial import imu_factor_batch
 from ..factors.visual import PROJ_SQRT_INFO
 from ..geodesy.earth import _ecef_to_geodetic_np
 from ..ops import lie
-from ..ops.pallas_proj import proj_segments_pallas
+from ..ops.pallas_proj import proj_plan, proj_segments_pallas
 from ..preintegration.midpoint import Preintegrated, preintegrate
 from ..solver.block_hessian import BlockHess, chain_blocks_into
 from ..solver.chain_factors import (ChainHidden, ChainMid, ChainRows,
@@ -405,13 +405,17 @@ def _solve_one_rtk(prob: RTKWindowProblem, lay: TangentLayout,
     # extrinsic slot (one host read per solve, outside the iterations)
     ext = slice(lay.ext_off, lay.ext_off + POSE_DIM * lay.nc)
     want_ext = bool(prob.free_mask[:, ext].any())
+    # per-solve constant: the observations grouped for the kernel (one
+    # camera)
+    cam_ids = torch.zeros_like(prob.f_ids)
+    plan = proj_plan(lay, prob.f_ids, cam_ids, prob.l_ids, prob.obs_valid)
 
     def eval_fn(comp):
         win, hid = comp
         S, pcost = proj_segments_pallas(
             lay, win.p, win.q, win.tic, win.qic, win.landmarks, pbg,
-            prob.f_ids, torch.zeros_like(prob.f_ids), prob.l_ids,
-            prob.obs_xy, prob.obs_valid, PROJ_SQRT_INFO, want_ext=want_ext)
+            prob.f_ids, cam_ids, prob.l_ids, prob.obs_xy, prob.obs_valid,
+            PROJ_SQRT_INFO, want_ext=want_ext, plan=plan)
         bh, g, cost = blocks_from_segments(lay, S, pcost)
         # chains touch frames/clk/pb only — entirely inside the reduced
         # block; the linearization aux is threaded to the retraction

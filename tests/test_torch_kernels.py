@@ -22,12 +22,20 @@ from rtk_visual_inertial_navigation_tpu_torch.ops import lie
 from rtk_visual_inertial_navigation_tpu_torch.ops.pallas_chol_lanes import (
     chol_solve_lanes, chol_solve_lanes_plain)
 from rtk_visual_inertial_navigation_tpu_torch.ops.pallas_proj import (
-    proj_segments_pallas, proj_segments_plain)
+    proj_plan, proj_segments_pallas, proj_segments_plain)
+
+EXT = ("PE", "EE", "LE", "GE")
 
 
-def _rand_proj_problem(seed, dtype, B=2, nf=4, nl=12, nc=2, nobs=37):
-    """Random ids (ragged nobs), every 5th row invalid, 15 % of the
-    landmarks dragged onto the camera plane (exercises the safe-z clamp)."""
+def _rand_proj_problem(seed, dtype, B=2, nf=4, nl=12, nc=2, nobs=37,
+                       layout="random"):
+    """Random frames, landmarks and extrinsics, every 5th row invalid, 15 %
+    of the landmarks dragged onto the camera plane (exercises the safe-z
+    clamp).  Ids by ``layout``: "random" (ragged nobs, repeated (f, l)
+    pairs wherever the draw gives them), "flagship" (landmark-contiguous,
+    observation o = nf·l + f, as make_synthetic_rtk_windows lays them out:
+    landmarks past nobs / nf have none) or "repeats" (every observation
+    of a row given twice, then landmarks past nl / 2 left out)."""
     rng = np.random.default_rng(seed)
     off = np.array([4.0, 0, 0, 0])
     unit = lambda q: q / np.linalg.norm(q, axis=-1, keepdims=True)
@@ -35,15 +43,44 @@ def _rand_proj_problem(seed, dtype, B=2, nf=4, nl=12, nc=2, nobs=37):
     lm = rng.normal(size=(B, nl, 3)) * 3.0 + np.array([0, 0, 8.0])
     lm[:, :max(1, int(0.15 * nl)), 2] = p[:, :1, 2] + 1e-4
     f = lambda a: torch.from_numpy(a).to(dtype).cuda()
-    i = lambda n: torch.from_numpy(rng.integers(0, n, (B, nobs))).cuda()
+    ids = {n: rng.integers(0, m, (B, nobs))
+           for n, m in (("f", nf), ("c", nc), ("l", nl))}
+    o = np.arange(nobs)
+    if layout == "flagship":
+        ids["f"], ids["l"] = np.broadcast_to(o % nf, (B, nobs)), \
+            np.broadcast_to(o // nf, (B, nobs))
+    elif layout == "repeats":
+        ids["f"] = ids["f"][:, o // 2]
+        ids["l"] = ids["l"][:, o // 2] % max(1, nl // 2)
+    i = lambda a: torch.from_numpy(np.array(a)).cuda()
     return (TangentLayout(nf=nf, nl=nl, nb=4, nc=nc), f(p),
             f(unit(rng.normal(size=(B, nf, 4)) + off)),
             f(0.05 * rng.normal(size=(B, nc, 3))),
             f(unit(rng.normal(size=(B, nc, 4)) + off)), f(lm),
-            f(0.01 * rng.normal(size=3)), i(nf), i(nc), i(nl),
-            f(0.3 * rng.normal(size=(B, nobs, 2))),
-            torch.from_numpy(np.arange(nobs) % 5 != 3).expand(
-                B, nobs).contiguous().cuda())
+            f(0.01 * rng.normal(size=3)), i(ids["f"]), i(ids["c"]),
+            i(ids["l"]), f(0.3 * rng.normal(size=(B, nobs, 2))),
+            torch.from_numpy(o % 5 != 3).expand(B, nobs).contiguous().cuda())
+
+
+def _assert_matches_plain(S1, c1, S0, c0, dtype, want_ext):
+    """Tolerances of tests/test_pallas_proj.py:79-80 (scale-aware: the
+    kernel sums in another order than the plain version), the cost held to
+    the same rule."""
+    eps = 3e-13 if dtype == torch.float64 else 2e-4
+    rtol = 1e-9 if dtype == torch.float64 else 2e-3
+    keys = list(S0) if want_ext else [k for k in S0 if k not in EXT]
+    for k in keys + ["cost"]:
+        ref = (c0 if k == "cost" else S0[k]).double().cpu()
+        got = (c1 if k == "cost" else S1[k]).double().cpu()
+        atol = eps * max(ref.abs().max().item(), 1.0)
+        torch.testing.assert_close(got, ref, rtol=rtol, atol=atol, msg=k)
+    if not want_ext:
+        assert not any(bool(S1[k].any()) for k in EXT)
+
+
+def _needs_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
 
 
 @pytest.mark.cuda
@@ -51,25 +88,76 @@ def _rand_proj_problem(seed, dtype, B=2, nf=4, nl=12, nc=2, nobs=37):
 @pytest.mark.parametrize("want_ext", [True, False])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_proj_segments_kernel_matches_plain(dtype, want_ext, cauchy_a):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    args = _rand_proj_problem(5, getattr(torch, dtype))
+    _needs_cuda()
+    dt = getattr(torch, dtype)
+    args = _rand_proj_problem(5, dt)
     S1, c1 = proj_segments_pallas(*args, PROJ_SQRT_INFO, cauchy_a=cauchy_a,
                                   want_ext=want_ext)
     S0, c0 = proj_segments_plain(*args, PROJ_SQRT_INFO, cauchy_a=cauchy_a)
-    # tolerances of tests/test_pallas_proj.py:79-80 (scale-aware: the
-    # kernel's atomics sum in another order), the cost held to the same rule
-    eps = 3e-13 if dtype == "float64" else 2e-4
-    rtol = 1e-9 if dtype == "float64" else 2e-3
-    ext = ("PE", "EE", "LE", "GE")
-    keys = list(S0) if want_ext else [k for k in S0 if k not in ext]
-    for k in keys + ["cost"]:
-        ref = (c0 if k == "cost" else S0[k]).double().cpu()
-        got = (c1 if k == "cost" else S1[k]).double().cpu()
-        atol = eps * max(ref.abs().max().item(), 1.0)
-        torch.testing.assert_close(got, ref, rtol=rtol, atol=atol, msg=k)
-    if not want_ext:
-        assert not any(bool(S1[k].any()) for k in ext)
+    _assert_matches_plain(S1, c1, S0, c0, dt, want_ext)
+
+
+# (B, nf, nl, nc, nobs, layout): the flagship's layout with landmarks left
+# unobserved; repeated pairs; nobs below and above one 128-row chunk, a
+# frame and a landmark with more rows than a chunk, nl over several ragged
+# 32-landmark tiles; B = 1; nf = 11 in f64 (a block above 48 KB of shared
+# memory)
+LAYOUTS = [(3, 11, 40, 1, 330, "flagship"), (2, 4, 12, 2, 60, "repeats"),
+           (2, 3, 70, 2, 37, "random"), (2, 2, 70, 2, 300, "random"),
+           (2, 3, 2, 1, 300, "random"), (1, 5, 60, 2, 200, "flagship"),
+           (1, 11, 100, 2, 500, "random")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_ext", [True, False])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("case", LAYOUTS, ids=lambda c: "-".join(map(str, c)))
+def test_proj_segments_kernel_layouts(case, dtype, want_ext):
+    _needs_cuda()
+    B, nf, nl, nc, nobs, layout = case
+    dt = getattr(torch, dtype)
+    args = _rand_proj_problem(sum(case[:5]), dt, B, nf, nl, nc, nobs, layout)
+    S1, c1 = proj_segments_pallas(*args, PROJ_SQRT_INFO, cauchy_a=1.0,
+                                  want_ext=want_ext)
+    S0, c0 = proj_segments_plain(*args, PROJ_SQRT_INFO, cauchy_a=1.0)
+    _assert_matches_plain(S1, c1, S0, c0, dt, want_ext)
+    # landmarks no valid row observes: exactly zero
+    l_ids, valid = args[9], args[11]
+    seen = torch.zeros((B, nl), dtype=torch.int64, device="cuda")
+    seen.scatter_add_(1, l_ids, valid.long())
+    unseen = seen == 0
+    assert bool(unseen.any()) or layout == "random"
+    for k in ("LL", "GL"):
+        assert not bool(S1[k][unseen].any()), k
+    assert not bool(S1["PL"].transpose(1, 2)[unseen].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_proj_segments_kernel_is_deterministic_and_takes_a_plan(dtype):
+    _needs_cuda()
+    args = _rand_proj_problem(8, getattr(torch, dtype), 4, 11, 64, 2, 600,
+                              "random")
+    lay, ids = args[0], (args[7], args[8], args[9], args[11])
+    plan = proj_plan(lay, *ids)
+    runs = [proj_segments_pallas(*args, PROJ_SQRT_INFO, cauchy_a=1.0,
+                                 plan=pl) for pl in (None, plan, plan)]
+    for S, c in runs[1:]:
+        assert torch.equal(c, runs[0][1])
+        for k in S:
+            assert torch.equal(S[k], runs[0][0][k]), k
+    # a plan of other (equal) ids is refused
+    with pytest.raises(ValueError, match="plan"):
+        proj_segments_pallas(*args[:7], args[7].clone(), *args[8:],
+                             PROJ_SQRT_INFO, plan=plan)
+
+
+@pytest.mark.cuda
+def test_proj_segments_kernel_refuses_too_large_nf():
+    _needs_cuda()
+    args = _rand_proj_problem(9, torch.float64, 1, 2000, 4, 1, 10)
+    with pytest.raises(ValueError, match="shared memory"):
+        proj_segments_pallas(*args, PROJ_SQRT_INFO)
 
 
 def _spd_systems(seed, B, n, not_spd=False):
