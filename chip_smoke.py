@@ -9,31 +9,36 @@ Phases (any failure exits non-zero and prints no result line):
   2. hold the projection kernel against its plain PyTorch version on the
      card: f64 and f32, Cauchy a in {0, 1}, want_ext in {True, False},
      random ids with ragged nobs and near-plane landmarks, and the flagship
-     shape, where 11 calls must also be bitwise equal; time kernel (with
+     shape, where 100 calls must also be bitwise equal, with the frames
+     no row observes exactly zero; time kernel (with
      the solve's observation plan and without), plan build and plain
      version per call at the flagship shape, and the device time against
      the largest landmark tile (information);
   3. drive the main path once — the flagship batched RTK-VI window solve
      at full width (nf=11, nl=352, nobs=2816, cap=11, ns=14, nb=16, B=32,
      f32, 8 dogleg iterations) through ``batched_rtk_solve`` — with the
-     launch counts zeroed just before and read just after; apply the
-     bench's hard gate; time a few more solves of the same problem and
-     report whether their positions are bitwise equal to the first
-     (information); check the CUDA solve against the CPU solve on a small
-     f64 problem;
-  4. the batched Cholesky kernel: no solve path calls it, so it is driven
-     at its own entry point ``chol_solve_lanes`` (counts zeroed just
-     before, read just after) on the shape it was written for (B=256,
-     n=120, f32); then held against its plain version there, at the JAX
-     test's shape, at B=300 n=37 and on a non-SPD input; kernel, plain
-     version and ``torch.linalg.cholesky_ex`` + ``cholesky_solve`` timed;
+     launch counts zeroed just before and read just after (the projection
+     kernel, and the Cholesky factor and solve kernels of the f32 step and
+     covariance); apply the bench's hard gate; time a few more solves of
+     the same problem and report whether their positions are bitwise equal
+     to the first (information); check the CUDA solve against the CPU
+     solve on a small f64 problem;
+  4. the batched Cholesky kernels (``chol_factor_lanes``,
+     ``chol_solve_factored``) at the shapes the solves give them — the VI
+     step (B=256, n=120) and the flagship step and covariance (B=32,
+     n=339; 1 and 16 right-hand sides) — and at B=300 n=37, B=3 n=400 and
+     a non-SPD input, held against their plain versions; kernel, plain
+     version and ``torch.linalg.cholesky_ex`` / ``cholesky_solve`` timed,
+     bounds computed, and the factor's cluster size swept at the flagship
+     shape (information);
   5. the VI sub-bench (``bench.py --vi``) at full width through
      ``batched_vi_solve`` (nf=8, nl=64, nobs=448, 16 IMU samples, B=256,
      f32, 8 dogleg iterations, landmark Schur, 120 kept reduced slots),
-     counts zeroed and read around it; its gate (each window held to the
-     same window solved on the host CPU), updates/s over 3 solves, the
-     latency of one B=1 solve (``bench.py --latency``), and a CUDA vs CPU
-     check on a small f64 problem;
+     counts zeroed and read around it (the Cholesky kernels must have
+     run); its gate (each window held to the same window solved on the
+     host CPU), updates/s over 3 solves, the latency of one B=1 solve
+     (``bench.py --latency``), and a CUDA vs CPU check on a small f64
+     problem;
   6. print the ``kernels`` JSON line, then the card line, then the final
      ``{"ok": true, ...}`` line.
 
@@ -64,9 +69,14 @@ VI_BATCH = 256
 # a window's f32 frame-1+ error on the card may differ from the CPU solve's
 # by this much (the tolerance of tests/test_torch_vi_f32.py against JAX)
 VI_ERR_TOL_M = 5e-3
-# the reduced block of the VI solve: 15·nf frame slots (the kernel's
-# docstring shape, B=256 n=120)
-CHOL_B, CHOL_N = 256, 120
+# the reduced blocks the f32 step factors: the VI solve's 15·nf kept slots
+# and the flagship's Dr = 339 (TangentLayout(11, 352, 16, 2): D = 1395,
+# 3·352 of it landmarks); the flagship covariance solves nb = 16 columns
+CHOL_SHAPES = {"vi": (VI_BATCH, 15 * VI["nf"]), "flagship": (BATCH, 339)}
+COV_COLS = FLAGSHIP["nb"]
+CHOL_KERNELS = ("chol_lanes", "chol_lanes_solve")
+# projection kernel calls at the flagship shape that must be bitwise equal
+REPEATS = 100
 
 
 def _fail(msg):
@@ -99,19 +109,29 @@ def _time_ms(fn, reps):
 def _device_ms(fn, reps, kernel_name):
     """Device time per call of the kernels named ``kernel_name``, from a
     torch.profiler trace (CUDA events around the calls also count the gaps
-    while the host prepares each launch)."""
+    while the host prepares each launch).  A trace that lost launches is no
+    measurement: it is taken again, and after three such traces the time is
+    None ("not measured")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel_name in e.name)
-    return us / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel_name in e.name]
+        if len(ev) == reps:
+            return sum(e.device_time for e in ev) / 1e3 / reps
+    return None
+
+
+def _ms(x):
+    """A time for a message: 4 decimals, or "not measured"."""
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def _rand_proj_problem(gen, B, nf, nl, nc, nobs, dtype, device,
@@ -232,13 +252,22 @@ def phase_kernel_checks(torch, dev, card):
         err = _compare(S1, c1, S0, c0, dtype, ("PP", "LL", "PL", "GP", "GL"),
                        f"flagship {dtype}")
         # repeated calls bitwise equal, each into memory left full of NaN
-        # (an output element the kernel failed to write would show)
-        for _ in range(10):
+        # (an output element the kernel failed to write would show), and
+        # the frames no live row observes exactly zero in every call (a
+        # block that reads shared memory another warp has not yet written
+        # shows only in an occasional call)
+        nrows = torch.zeros((BATCH, FLAGSHIP["nf"]), dtype=torch.int64,
+                            device=dev)
+        nrows.scatter_add_(1, pr.f_ids.long(), pr.obs_valid.long())
+        empty = nrows == 0
+        for _ in range(REPEATS - 1):
             torch.full((1 << 24,), float("nan"), dtype=dtype, device=dev)
             S2, c2 = kern()
             if not (torch.equal(c1, c2)
                     and all(torch.equal(S1[k], S2[k]) for k in S1)):
                 _fail(f"flagship {dtype}: two kernel calls differ")
+            if bool(S2["PP"][empty].any()) or bool(S2["GP"][empty].any()):
+                _fail(f"flagship {dtype}: a frame without rows is not zero")
         cases += 1
         if dtype == torch.float32:
             ms = _time_ms(kern, 50)
@@ -258,8 +287,7 @@ def phase_kernel_checks(torch, dev, card):
                     d = (St["PL"] - S1["PL"]).abs().max().item()
                     print(f"phase 2: tile {max_tile}: PL differs from tile "
                           f"32 by {d:.3e}", flush=True)
-                tiles[max_tile] = round(_device_ms(fn, 20, "proj_segments"),
-                                        6)
+                tiles[max_tile] = _device_ms(fn, 20, "proj_segments")
             esz = torch.finfo(dtype).bits // 8
             B, nf, nl, nobs = BATCH, lay.nf, lay.nl, pr.f_ids.shape[1]
             nc = 2
@@ -281,12 +309,14 @@ def phase_kernel_checks(torch, dev, card):
                        bound_by="bytes" if t_bytes >= t_ops else
                        "operations", bytes=in_bytes + out_bytes,
                        valid_obs=n_valid)
-            res["share_of_bound"] = res["bound_ms"] / device_ms
+            res["share_of_bound"] = (res["bound_ms"] / device_ms
+                                     if device_ms else None)
     print(f"phase 2: proj_segments kernel matches its plain version in "
-          f"{cases} cases, 11 flagship calls bitwise equal (f32, f64); "
+          f"{cases} cases, {REPEATS} flagship calls bitwise equal and "
+          f"frames without rows zero (f32, f64); "
           f"flagship B={BATCH} f32: kernel {res['ms']:.4f} ms/call with the "
-          f"solve's plan ({res['device_ms']:.4f} ms device time, "
-          f"{100 * res['share_of_bound']:.1f} % of the bound), "
+          f"solve's plan ({_ms(res['device_ms'])} ms device time, bound "
+          f"/ device time {res['share_of_bound']}), "
           f"{res['noplan_ms']:.4f} ms/call building the plan per call, "
           f"plan build {res['plan_ms']:.4f} ms, plain "
           f"{res['plain_ms']:.3f} ms/call, bound "
@@ -299,7 +329,7 @@ def phase_kernel_checks(torch, dev, card):
 def phase_flagship(torch, dev, card):
     from rtk_visual_inertial_navigation_tpu_torch.core.state import \
         TangentLayout
-    from rtk_visual_inertial_navigation_tpu_torch.ops.pallas_proj import \
+    from rtk_visual_inertial_navigation_tpu_torch.ops.launches import \
         LAUNCHES
     from rtk_visual_inertial_navigation_tpu_torch.parallel.problems_gnss \
         import batched_rtk_solve, make_synthetic_rtk_windows
@@ -332,8 +362,8 @@ def phase_flagship(torch, dev, card):
     gate = dict(nacc_min=nacc_min, max_pos_err_m=perr.max().item(),
                 max_amb_err_cyc=pberr.max().item(), cov_finite=cov_ok)
     print(f"phase 3: flagship solve B={BATCH} f32: {json.dumps(gate)}; "
-          f"first call {t_first:.2f} s, synthesis {t_gen:.2f} s",
-          flush=True)
+          f"first call {t_first:.2f} s, synthesis {t_gen:.2f} s; kernel "
+          f"launches in this solve {json.dumps(launches)}", flush=True)
     fails = []
     if nacc_min == 0:
         fails.append("a window accepted no step")
@@ -345,6 +375,9 @@ def phase_flagship(torch, dev, card):
         fails.append("covariance not finite")
     if not shape_ok:
         fails.append("unexpected output shapes")
+    for name in ("proj_segments",) + CHOL_KERNELS:
+        if not launches.get(name, 0):
+            fails.append(f"the solve never launched the {name} kernel")
     if fails:
         _fail("flagship gate: " + "; ".join(fails))
 
@@ -397,99 +430,142 @@ def phase_small_reference(torch, dev):
           "(atol 1e-8)", flush=True)
 
 
-def _spd_systems(gen, B, n, not_spd=False):
-    """The recipe of tests/test_pallas_chol.py:15-18 (f32); ``not_spd``
-    makes the last pivot negative."""
+def _spd_systems(gen, B, n, not_spd=False, k=1):
+    """The recipe of tests/test_pallas_chol.py:15-18 (f32), with k
+    right-hand sides ((B, n) for k = 1); ``not_spd`` makes the last pivot
+    negative."""
     import torch
     A = torch.randn((B, n, 3 * n), generator=gen).float()
     S = A @ A.transpose(-1, -2) / n + 0.5 * torch.eye(n)
     if not_spd:
         S[:, -1, -1] = -1.0
-    rhs = torch.randn((B, n), generator=gen).float()
+    rhs = torch.randn((B, n) if k == 1 else (B, n, k), generator=gen).float()
     return S.cuda(), rhs.cuda()
 
 
-def _chol_bytes(B, n, sector=32):
-    """Bytes a solve of B contiguous f32 systems must move: the lower
-    triangle of each symmetric S (the solve reads nothing else of it),
-    counted in the 32-byte sectors the rows span, rhs read once, x written
-    once."""
+def _tril_bytes(B, n, sector=32):
+    """Bytes of the lower triangles of B contiguous f32 (n, n) matrices,
+    counted in the 32-byte sectors their rows span."""
     import torch
     r, c = torch.tril_indices(n, n)
     elem = (torch.arange(B)[:, None] * (n * n) + (r * n + c)).flatten()
-    s_bytes = sector * torch.unique(elem * 4 // sector).numel()
-    return s_bytes + 2 * 4 * B * n
+    return sector * torch.unique(elem * 4 // sector).numel()
+
+
+def _bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _chol_check(torch, label, S, b, not_spd=False):
+    """Factor and solve kernels against their plain versions: L within
+    1e-5·max|L| and info equal, x within 1e-5·max|x|, relative residual
+    < 1e-4 (tests/test_pallas_chol.py:31).  Returns the two errors."""
+    from rtk_visual_inertial_navigation_tpu_torch.ops.pallas_chol_lanes \
+        import (chol_factor_lanes, chol_factor_lanes_plain,
+                chol_solve_factored, chol_solve_factored_plain)
+    L1, info1 = chol_factor_lanes(S)
+    L0, info0 = chol_factor_lanes_plain(S)
+    torch.cuda.synchronize()
+    if not torch.equal(info1, info0):
+        _fail(f"{label}: factor info {info1.tolist()[:8]} differs from the "
+              f"plain version's {info0.tolist()[:8]}")
+    if bool(info1.any()) != not_spd:
+        _fail(f"{label}: info {'misses' if not_spd else 'flags'} a failure")
+    if not bool(torch.isfinite(L1).all()) or bool(torch.triu(L1, 1).any()):
+        _fail(f"{label}: L not finite or not lower triangular")
+    l_err = (L1 - L0).abs().max().item()
+    if not l_err <= 1e-5 * L0.abs().max().item():
+        _fail(f"{label}: L differs from the plain version's by {l_err:.3e}")
+    x1 = chol_solve_factored(L1, b)
+    x0 = chol_solve_factored_plain(L1, b)
+    torch.cuda.synchronize()
+    x_err = (x1 - x0).abs().max().item()
+    if not bool(torch.isfinite(x1).all()) or \
+            not x_err <= 1e-5 * max(x0.abs().max().item(), 1.0):
+        _fail(f"{label}: x differs from the plain version's by {x_err:.3e}")
+    if not not_spd:
+        bb, xx = (b, x1) if b.dim() == 3 else (b[..., None], x1[..., None])
+        r = S.double() @ xx.double() - bb.double()
+        rel = (r.norm(dim=1) / bb.double().norm(dim=1)).max().item()
+        if not rel < 1e-4:
+            _fail(f"{label}: relative residual {rel:.3e}")
+    return l_err, x_err
 
 
 def phase_chol(torch, card):
     from rtk_visual_inertial_navigation_tpu_torch.ops.pallas_chol_lanes \
-        import chol_solve_lanes, chol_solve_lanes_plain
-    from rtk_visual_inertial_navigation_tpu_torch.ops.pallas_proj import \
-        LAUNCHES
+        import (_factor_cuda, chol_factor_lanes, chol_factor_lanes_plain,
+                chol_solve_factored, chol_solve_factored_plain,
+                chol_solve_lanes)
 
     gen = torch.Generator().manual_seed(2)
-    S, rhs = _spd_systems(gen, CHOL_B, CHOL_N)
-    # the entry point, counted: no solve path calls this kernel
-    LAUNCHES.clear()
-    chol_solve_lanes(S, rhs)
-    torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    res = {}
+    for shape, (B, n) in CHOL_SHAPES.items():
+        S, b1 = _spd_systems(gen, B, n)
+        l_err, x_err = _chol_check(torch, f"chol {shape} B={B} n={n}", S, b1)
+        bk = torch.randn((B, n, COV_COLS), generator=gen).cuda()
+        _, xk_err = _chol_check(torch, f"chol {shape} B={B} n={n} "
+                                f"k={COV_COLS}", S, bk)
+        # chol_solve_lanes keeps the TPU kernel's contract: factor + solve
+        L, _ = chol_factor_lanes(S)
+        if not torch.equal(chol_solve_lanes(S, b1),
+                           chol_solve_factored(L, b1)):
+            _fail(f"chol {shape}: chol_solve_lanes differs from factor + "
+                  f"solve")
+        f = dict(max_abs_err=l_err,
+                 ms=_time_ms(lambda: chol_factor_lanes(S), 50),
+                 device_ms=_device_ms(lambda: chol_factor_lanes(S), 20,
+                                      "chol_lanes_factor"),
+                 plain_ms=_time_ms(lambda: chol_factor_lanes_plain(S), 3),
+                 library_ms=_time_ms(lambda: torch.linalg.cholesky_ex(S), 50))
+        f["bound_ms"], f["bound_by"] = _bound(
+            2 * _tril_bytes(B, n) + 4 * B, B * n ** 3 / 3)
+        Ll, _ = torch.linalg.cholesky_ex(S)
+        solve = {}
+        for k, rhs, err in ((1, b1, x_err), (COV_COLS, bk, xk_err)):
+            rb = rhs if k > 1 else rhs[..., None]
+            sv = dict(max_abs_err=err,
+                      ms=_time_ms(lambda: chol_solve_factored(L, rhs), 50),
+                      device_ms=_device_ms(
+                          lambda: chol_solve_factored(L, rhs), 20,
+                          "chol_lanes_solve"),
+                      plain_ms=_time_ms(
+                          lambda: chol_solve_factored_plain(L, rhs), 3),
+                      library_ms=_time_ms(
+                          lambda: torch.cholesky_solve(rb, Ll), 50))
+            sv["bound_ms"], sv["bound_by"] = _bound(
+                _tril_bytes(B, n) + 2 * 4 * B * n * k, 2 * B * n * n * k)
+            solve[k] = sv
+        res[shape] = dict(B=B, n=n, factor=f, solve=solve)
+        print(f"phase 4: chol {shape} B={B} n={n} f32: factor "
+              f"{json.dumps(f)}; solve k=1 {json.dumps(solve[1])}; solve "
+              f"k={COV_COLS} {json.dumps(solve[COV_COLS])}; factor + one "
+              f"solve bound {f['bound_ms'] + solve[1]['bound_ms']:.5f} ms "
+              f"on {card}", flush=True)
 
-    worst = 0.0
-    cases = [(CHOL_B, CHOL_N, False), (2, 48, False), (300, 37, False),
-             (4, 40, True)]
-    for B, n, not_spd in cases:
-        Sc, rc = (S, rhs) if (B, n) == (CHOL_B, CHOL_N) else \
-            _spd_systems(gen, B, n, not_spd)
-        x1 = chol_solve_lanes(Sc, rc)
-        x0 = chol_solve_lanes_plain(Sc, rc)
-        torch.cuda.synchronize()
-        label = f"chol B={B} n={n}{' not SPD' if not_spd else ''}"
-        if not bool(torch.isfinite(x1).all() and torch.isfinite(x0).all()):
-            _fail(f"{label}: non-finite x")
-        # same recurrence, f32 sums in another order: roundoff relative to
-        # the largest entry
-        err = (x1 - x0).abs().max().item()
-        atol = 1e-5 * max(x0.abs().max().item(), 1.0)
-        if not err <= atol:
-            _fail(f"{label}: kernel differs from the plain version by "
-                  f"{err:.3e} (atol {atol:.3e})")
-        if (B, n) == (CHOL_B, CHOL_N):
-            worst = err
-        if not not_spd:
-            r = torch.einsum("bij,bj->bi", Sc.double(), x1.double()) - rc
-            rel = (r.norm(dim=1) / rc.double().norm(dim=1)).max().item()
-            if not rel < 1e-4:        # tests/test_pallas_chol.py:31
-                _fail(f"{label}: relative residual {rel:.3e}")
-
-    def library():
-        L, _ = torch.linalg.cholesky_ex(S)
-        return torch.cholesky_solve(rhs[..., None], L)[..., 0]
-
-    xl = library()
-    torch.cuda.synchronize()
-    kern = lambda: chol_solve_lanes(S, rhs)
-    ms = _time_ms(kern, 50)
-    device_ms = _device_ms(kern, 20, "chol_lanes")
-    plain_ms = _time_ms(lambda: chol_solve_lanes_plain(S, rhs), 3)
-    library_ms = _time_ms(library, 50)
-    B, n = CHOL_B, CHOL_N
-    nbytes = _chol_bytes(B, n)
-    flops = B * (n ** 3 / 3 + 2 * n ** 2)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-    lib_err = (xl - chol_solve_lanes(S, rhs)).abs().max().item()
-    res = dict(launches=launches.get("chol_lanes", 0), max_abs_err=worst,
-               ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
-    print(f"phase 4: chol_lanes kernel matches its plain version in "
-          f"{len(cases)} cases (max abs err {worst:.3e} at B={B} n={n}; "
-          f"vs torch.linalg {lib_err:.3e}); B={B} n={n} f32: kernel "
-          f"{ms:.4f} ms/call ({device_ms:.4f} ms device time), plain "
-          f"{plain_ms:.3f} ms, cholesky_ex+cholesky_solve {library_ms:.4f} "
-          f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
-          f"{nbytes} bytes, {flops:.4g} FLOP) on {card}", flush=True)
+    cases = [(300, 37, False, 1), (3, 400, False, COV_COLS),
+             (4, 40, True, 1)]
+    for B, n, not_spd, k in cases:
+        S, b = _spd_systems(gen, B, n, not_spd, k)
+        _chol_check(torch, f"chol B={B} n={n} k={k}"
+                    f"{' not SPD' if not_spd else ''}", S, b, not_spd)
+    # information: the factor's CTAs per system at the flagship shape
+    B, n = CHOL_SHAPES["flagship"]
+    S, _ = _spd_systems(gen, B, n)
+    L_ref, _ = chol_factor_lanes(S)
+    sweep = {}
+    for cluster in (2, 3, 4, 8):
+        fn = lambda: _factor_cuda(S, cluster)
+        if not torch.equal(fn()[0], L_ref):
+            _fail(f"chol flagship: cluster {cluster} gives another factor")
+        sweep[cluster] = _device_ms(fn, 20, "chol_lanes_factor")
+    res["flagship"]["factor"]["cluster_device_ms"] = sweep
+    print(f"phase 4: chol kernels match their plain versions at both "
+          f"shapes (k = 1, {COV_COLS}) and in {len(cases)} more cases; "
+          f"flagship factor device ms by CTAs per system "
+          f"{json.dumps(sweep)} on {card}", flush=True)
     return res
 
 
@@ -498,7 +574,7 @@ def phase_vi(torch, dev, card):
 
     from rtk_visual_inertial_navigation_tpu_torch.core.state import \
         TangentLayout
-    from rtk_visual_inertial_navigation_tpu_torch.ops.pallas_proj import \
+    from rtk_visual_inertial_navigation_tpu_torch.ops.launches import \
         LAUNCHES
     from rtk_visual_inertial_navigation_tpu_torch.parallel import (
         batched_vi_solve, make_synthetic_windows)
@@ -578,6 +654,9 @@ def phase_vi(torch, dev, card):
         fails.append("the f64 solve misses truth by > 1e-6 m")
     if tuple(state.p.shape) != (VI_BATCH, nf, 3):
         fails.append("unexpected output shape")
+    for name in CHOL_KERNELS:
+        if not launches.get(name, 0):
+            fails.append(f"the solve never launched the {name} kernel")
     if fails:
         _fail("VI gate: " + "; ".join(fails))
     del probs64, state64
@@ -644,7 +723,7 @@ def main():
           f"{torch.version.cuda}", flush=True)
     from rtk_visual_inertial_navigation_tpu_torch.ops import build
     t0 = time.time()
-    logs = build.build(["proj_segments", "chol_lanes"], verbose=True)
+    logs = build.build(["proj_segments", *CHOL_KERNELS], verbose=True)
     for name, log in logs.items():
         print(f"phase 1: built {name} in {time.time() - t0:.1f} s\n"
               + log.strip(), flush=True)
@@ -655,13 +734,15 @@ def main():
     launches = phase_flagship(torch, dev, card)
     phase_small_reference(torch, dev)
     cres = phase_chol(torch, card)
-    phase_vi(torch, dev, card)
+    vres = phase_vi(torch, dev, card)
 
     n = launches.get("proj_segments", 0)
     if n == 0:
         _fail("the main path never launched the proj_segments kernel")
-    if cres["launches"] == 0:
-        _fail("chol_solve_lanes never launched the chol_lanes kernel")
+    for name in CHOL_KERNELS:
+        if not launches.get(name, 0) or not vres["launches"].get(name, 0):
+            _fail(f"a window solve never launched the {name} kernel")
+    fl, vi = cres["flagship"], cres["vi"]
     kernels = [dict(
         name="proj_segments", route="cuda",
         source=f"{PKG}/ops/csrc/proj_segments.cu",
@@ -672,17 +753,34 @@ def main():
         device_ms=kres["device_ms"], share_of_bound=kres["share_of_bound"],
         plan_ms=kres["plan_ms"], noplan_ms=kres["noplan_ms"],
         tile_device_ms=kres["tile_device_ms"],
-        phase="phase 3 (flagship solve); timed in phase 2"), dict(
-        name="chol_lanes", route="cuda",
-        source=f"{PKG}/ops/csrc/chol_lanes.cu",
-        replaces="rtk_visual_inertial_navigation_tpu/ops/"
-                 "pallas_chol_lanes.py:40",
-        launches=cres["launches"], max_abs_err=cres["max_abs_err"],
-        ms=cres["ms"], plain_ms=cres["plain_ms"],
-        bound_ms=cres["bound_ms"], bound_by=cres["bound_by"],
-        library_ms=cres["library_ms"], device_ms=cres["device_ms"],
-        phase="phase 4: its own entry point chol_solve_lanes, since no "
-              "solve path of the JAX package calls it")]
+        phase="phase 3 (flagship solve); timed in phase 2")]
+    # the Cholesky kernels: numbers at the flagship shape (B=32, n=339;
+    # library: cholesky_ex for the factor, cholesky_solve for the solve),
+    # the VI shape's and the 16-column solve's beside them
+    for name, src, key in (("chol_lanes", "chol_lanes.cu", "factor"),
+                           ("chol_lanes_solve", "chol_lanes_solve.cu",
+                            "solve")):
+        pick = (lambda r: r["factor"]) if key == "factor" else \
+            (lambda r: r["solve"][1])
+        main = pick(fl)
+        extra = dict(vi_shape=dict(B=vi["B"], n=vi["n"], **pick(vi)))
+        if key == "solve":
+            extra.update(k16=fl["solve"][COV_COLS],
+                         vi_k16=vi["solve"][COV_COLS])
+        else:
+            extra.update(cluster_device_ms=main["cluster_device_ms"])
+        kernels.append(dict(
+            name=name, route="cuda", source=f"{PKG}/ops/csrc/{src}",
+            replaces="rtk_visual_inertial_navigation_tpu/ops/"
+                     "pallas_chol_lanes.py:40",
+            launches=launches[name], max_abs_err=main["max_abs_err"],
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"], device_ms=main["device_ms"],
+            shape=dict(B=fl["B"], n=fl["n"]),
+            launches_per_vi_solve=vres["launches"][name], **extra,
+            phase="phases 3 and 5 (the f32 step and covariance of both "
+                  "window solves); timed in phase 4"))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

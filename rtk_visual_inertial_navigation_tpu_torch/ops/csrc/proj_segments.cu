@@ -260,6 +260,9 @@ __device__ __forceinline__ void frame_block(const Args<T>& a, int b, int f,
   T* acc = red + kWarps * E;         // (E,) sums over the chunks
   int* last = reinterpret_cast<int*>(acc + E);
   for (int k = tid; k < E; k += kThreads) acc[k] = T(0);
+  // a frame without rows skips the loop and its barriers, and the stores
+  // below read entries of acc that other warps zeroed
+  __syncthreads();
 
   const int* off = a.off_f + (long)b * (nf + 1);
   const int s0 = off[f], s1 = off[f + 1];

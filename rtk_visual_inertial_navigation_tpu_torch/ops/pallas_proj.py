@@ -24,7 +24,6 @@ other ids; a CUDA build or launch failure raises too.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 import math
@@ -37,10 +36,7 @@ from ..factors.robust import cauchy_correct
 from ..factors.visual import projection_factor_batch
 from ..solver.structured import _proj_segments
 from .build import load
-
-# kernel launches per wrapper; a run resets and reads it to show which
-# kernels its main path went through
-LAUNCHES = collections.Counter()
+from .launches import LAUNCHES
 
 
 def proj_segments_plain(lay: TangentLayout, p, q, tic, qic, landmarks, pbg,

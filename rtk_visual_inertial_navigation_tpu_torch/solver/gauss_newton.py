@@ -19,6 +19,7 @@ from torch.utils._pytree import tree_map
 
 from ..factors.base import FactorBatch
 from ..ops.linalg import cho_solve, cholesky_nan
+from ..ops.pallas_chol_lanes import chol_factor_lanes, chol_solve_factored
 
 
 def one_hot(ids, n: int, dtype):
@@ -171,16 +172,31 @@ def _chol_solve_scaled(A, b, step_dtype: str = "same", shift: float = 1e-5,
     In f32 (ambient, or step_dtype="float32") a plain Cholesky of a scaled
     Hessian with condition ~1e10 is not even positive definite: factor the
     shifted A + shift·I in f32 instead and refine in the ambient dtype,
-    which converges to the damped-GN step (A + shift·I)⁻¹b.
+    which converges to the damped-GN step (A + shift·I)⁻¹b.  The f32 factor
+    and its three solves run through the batched Cholesky kernels
+    (``ops/pallas_chol_lanes.py``); the f64 solve stays on ``torch.linalg``,
+    because those kernels, like the TPU kernel they replace, are f32 only.
     """
     if step_dtype != "float32" and A.dtype != torch.float32:
         return cho_solve(cholesky_nan(A), b)
-    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
-    L = cholesky_nan((A + shift * eye).to(torch.float32))
-    x = cho_solve(L, b.to(torch.float32)).to(A.dtype)
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    L, info = chol_factor_lanes(
+        (A + shift * eye).to(torch.float32).reshape(-1, n, n))
+    # NaN where the factorization failed, as ops.linalg.cholesky_nan
+    L = torch.where((info != 0)[:, None, None], torch.nan, L)
+    vec = b.dim() == A.dim() - 1
+    nb = L.shape[0]
+
+    def solve(r):
+        r32 = r.to(torch.float32)
+        r32 = r32.reshape((nb, n) if vec else (nb, n, r.shape[-1]))
+        return chol_solve_factored(L, r32).reshape(r.shape).to(A.dtype)
+
+    x = solve(b)
     for _ in range(refine):
         r = b - _mv(A, x) - shift * x
-        x = x + cho_solve(L, r.to(torch.float32)).to(A.dtype)
+        x = x + solve(r)
     return x
 
 

@@ -19,8 +19,11 @@ from rtk_visual_inertial_navigation_tpu_torch.core.state import \
 from rtk_visual_inertial_navigation_tpu_torch.factors.visual import \
     PROJ_SQRT_INFO
 from rtk_visual_inertial_navigation_tpu_torch.ops import lie
+from rtk_visual_inertial_navigation_tpu_torch.ops.launches import LAUNCHES
 from rtk_visual_inertial_navigation_tpu_torch.ops.pallas_chol_lanes import (
-    chol_solve_lanes, chol_solve_lanes_plain)
+    _factor_cuda, chol_factor_lanes, chol_factor_lanes_plain,
+    chol_solve_factored, chol_solve_factored_plain, chol_solve_lanes,
+    chol_solve_lanes_plain)
 from rtk_visual_inertial_navigation_tpu_torch.ops.pallas_proj import (
     proj_plan, proj_segments_pallas, proj_segments_plain)
 
@@ -153,6 +156,36 @@ def test_proj_segments_kernel_is_deterministic_and_takes_a_plan(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_proj_segments_kernel_frames_without_rows_are_zero(dtype):
+    """A frame no valid row observes has zero PP and GP in every call; the
+    frame block that owns it must not read shared memory that another warp
+    has not yet zeroed (a race that showed only in an occasional call)."""
+    _needs_cuda()
+    dt = getattr(torch, dtype)
+    B, nf = 32, 11
+    args = _rand_proj_problem(9, dt, B, nf, 64, 2, 400, "random")
+    f_ids, valid = args[7], args[11].clone()
+    valid[B // 2:] &= f_ids[B // 2:] < nf - 3     # frames 8-10 left empty
+    args = args[:11] + (valid,)
+    lay, ids = args[0], (args[7], args[8], args[9], args[11])
+    plan = proj_plan(lay, *ids)
+    empty = torch.zeros((B, nf), dtype=torch.bool, device="cuda")
+    empty[B // 2:, nf - 3:] = True
+    S0, c0 = proj_segments_pallas(*args, PROJ_SQRT_INFO, want_ext=False,
+                                  plan=plan)
+    for _ in range(200):
+        torch.randn(1 << 20, device="cuda")   # other data in the memory
+        S, c = proj_segments_pallas(*args, PROJ_SQRT_INFO, want_ext=False,
+                                    plan=plan)
+        assert not bool(S["PP"][empty].any())
+        assert not bool(S["GP"][empty].any())
+        assert torch.equal(c, c0)
+        for k in S:
+            assert torch.equal(S[k], S0[k]), k
+
+
+@pytest.mark.cuda
 def test_proj_segments_kernel_refuses_too_large_nf():
     _needs_cuda()
     args = _rand_proj_problem(9, torch.float64, 1, 2000, 4, 1, 10)
@@ -194,9 +227,94 @@ def test_chol_lanes_kernel_matches_plain(B, n, not_spd):
 
 
 @pytest.mark.cuda
-def test_chol_lanes_kernel_refuses_too_large_n():
+@pytest.mark.parametrize("k", [1, 16])
+@pytest.mark.parametrize("B,n,not_spd", [
+    (256, 120, False), (32, 339, False), (300, 37, False), (3, 400, False),
+    (4, 40, True)])
+def test_chol_factor_and_solve_kernels_match_plain(B, n, not_spd, k):
+    """The factor kernel (L, info) and the solve kernel (x, k right-hand
+    sides) against their plain versions, at the shapes of the VI step
+    (256, 120) and the flagship step and covariance (32, 339), a ragged n,
+    an n above the flagship's, and a non-SPD input (last pivot negative)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    S, rhs = _spd_systems(7, 1, 300)
-    with pytest.raises(ValueError, match="shared memory"):
-        chol_solve_lanes(S, rhs)
+    S, _ = _spd_systems(8, B, n, not_spd)
+    rng = np.random.default_rng(9)
+    b = torch.from_numpy(rng.normal(size=(B, n) if k == 1 else (B, n, k))
+                         .astype(np.float32)).cuda()
+    L1, info1 = chol_factor_lanes(S)
+    L0, info0 = chol_factor_lanes_plain(S)
+    torch.cuda.synchronize()
+    assert info1.dtype == torch.int32
+    torch.testing.assert_close(info1, info0, rtol=0, atol=0)
+    assert bool((info1 != 0).all()) if not_spd else not bool(info1.any())
+    assert bool(torch.isfinite(L1).all())
+    assert not bool(torch.triu(L1, 1).any())
+    # same recurrence, f32 sums in another order
+    torch.testing.assert_close(L1, L0, rtol=0,
+                               atol=1e-5 * L0.abs().max().item())
+    x1 = chol_solve_factored(L1, b)
+    x0 = chol_solve_factored_plain(L1, b)
+    torch.cuda.synchronize()
+    assert x1.shape == b.shape and bool(torch.isfinite(x1).all())
+    torch.testing.assert_close(x1, x0, rtol=0,
+                               atol=1e-5 * max(x0.abs().max().item(), 1.0))
+    if not not_spd:       # the residual rule of tests/test_pallas_chol.py:31
+        bb = b if k > 1 else b[..., None]
+        xx = x1 if k > 1 else x1[..., None]
+        r = S.double() @ xx.double() - bb.double()
+        rel = r.norm(dim=1) / bb.double().norm(dim=1)
+        assert rel.max().item() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [2, 3, 4, 8])
+def test_chol_factor_kernel_cluster_sizes_agree(cluster):
+    """At the flagship shape every cluster size gives the same factor (the
+    per-tile arithmetic does not depend on which CTA owns a tile)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    S, _ = _spd_systems(10, 32, 339)
+    L, info = _factor_cuda(S, cluster)
+    L0, _ = chol_factor_lanes(S)
+    torch.cuda.synchronize()
+    assert not bool(info.any())
+    torch.testing.assert_close(L, L0, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 16])
+def test_chol_solve_scaled_on_cuda_uses_the_kernels(monkeypatch, k):
+    """The routed f32 step solve (k = 0: one right-hand side, as the step;
+    k = 16: tail_cov's columns) at the flagship's reduced shape calls no
+    torch.linalg Cholesky: both library calls raise here."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from rtk_visual_inertial_navigation_tpu_torch.solver.gauss_newton \
+        import _chol_solve_scaled
+
+    def refuse(*a, **kw):
+        raise AssertionError("torch.linalg Cholesky called on the f32 path")
+
+    S, _ = _spd_systems(11, 32, 339)
+    s = torch.rsqrt(torch.diagonal(S, dim1=-2, dim2=-1))
+    A = S * s[:, :, None] * s[:, None, :]
+    rng = np.random.default_rng(12)
+    b = torch.from_numpy(rng.normal(size=(32, 339) if k == 0 else
+                                    (32, 339, k)).astype(np.float32)).cuda()
+    A[3, 7, 7] = -1.0                       # this system's factor fails
+    monkeypatch.setattr(torch.linalg, "cholesky_ex", refuse)
+    monkeypatch.setattr(torch, "cholesky_solve", refuse)
+    LAUNCHES.clear()
+    x = _chol_solve_scaled(A, b)
+    torch.cuda.synchronize()
+    assert LAUNCHES["chol_lanes"] == 1 and LAUNCHES["chol_lanes_solve"] == 3
+    assert bool(torch.isnan(x[3]).all())
+    ok = [i for i in range(32) if i != 3]
+    Ad = A[ok].double() + 1e-5 * torch.eye(339, device="cuda",
+                                           dtype=torch.float64)
+    bd = b[ok].double()
+    ref = torch.linalg.solve(Ad, bd if k else bd[..., None])
+    ref = ref if k else ref[..., 0]
+    err = (x[ok].double() - ref).abs().max().item()
+    assert err <= 1e-3 * ref.abs().max().item(), err
