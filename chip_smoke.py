@@ -39,7 +39,20 @@ Phases (any failure exits non-zero and prints no result line):
      host CPU), updates/s over 3 solves, the latency of one B=1 solve
      (``bench.py --latency``), and a CUDA vs CPU check on a small f64
      problem;
-  6. print the ``kernels`` JSON line, then the card line, then the final
+  6. the estimator pipeline (``bench.py --pipeline``) through the port's
+     ``pipeline.Estimator`` on the card: the bench's 30 s noiseless RTK-VI
+     sequence (cam 2 Hz, GNSS 2 Hz, nf=10, nl=48, nb=32, IMU-GNSS chains at
+     the default caps, LAMBDA fixing), the f32 step, counts zeroed and read
+     around it (the Cholesky kernels must have run); the gate of
+     tests/test_pipeline_gnss.py:117-138 (initialized, fixed, the fixed
+     double differences equal the simulated integers, the last 10 frames
+     within 0.02 m of truth); steady-state frames/s as the bench computes
+     it (12 warm-up frames, then the mean of the stamp gaps, median and
+     p90), launches per frame, and the host time per frame by stage;
+     6b. the bench's 8 s ``--smoke`` sequence in f64 on the card and on the
+     host CPU: every frame's position within PIPE_F64_TOL_M, the same
+     per-frame ``rtk_fixed`` flags and the same fixed integers;
+  7. print the ``kernels`` JSON line, then the card line, then the final
      ``{"ok": true, ...}`` line.
 
 It imports nothing of the JAX package.
@@ -69,14 +82,27 @@ VI_BATCH = 256
 # a window's f32 frame-1+ error on the card may differ from the CPU solve's
 # by this much (the tolerance of tests/test_torch_vi_f32.py against JAX)
 VI_ERR_TOL_M = 5e-3
-# the reduced blocks the f32 step factors: the VI solve's 15·nf kept slots
-# and the flagship's Dr = 339 (TangentLayout(11, 352, 16, 2): D = 1395,
-# 3·352 of it landmarks); the flagship covariance solves nb = 16 columns
-CHOL_SHAPES = {"vi": (VI_BATCH, 15 * VI["nf"]), "flagship": (BATCH, 339)}
+# the reduced blocks the f32 step factors: the VI solve's 15·nf kept slots,
+# the flagship's Dr = 339 (TangentLayout(11, 352, 16, 2): D = 1395, 3·352
+# of it landmarks) and the pipeline's one window, Dr = 327
+# (TangentLayout(10, 48, 32, 2): D = 471, 3·48 of it landmarks); the
+# flagship covariance solves nb = 16 columns
+CHOL_SHAPES = {"vi": (VI_BATCH, 15 * VI["nf"]), "flagship": (BATCH, 339),
+               "pipeline": (1, 327)}
 COV_COLS = FLAGSHIP["nb"]
 CHOL_KERNELS = ("chol_lanes", "chol_lanes_solve")
 # projection kernel calls at the flagship shape that must be bitwise equal
 REPEATS = 100
+# bench.py --pipeline (bench.py:49-64): the simulated sequence, seed 0,
+# noiseless; 30 s, or 8 s with --smoke
+PIPE_SIM = dict(imu_rate=200.0, cam_rate=2.0, gnss_rate=2.0, n_landmarks=60,
+                n_sats=10, seed=0)
+PIPE_DURATION = 30.0
+PIPE_SMOKE_DURATION = 8.0
+PIPE_WARMUP = 12
+# the f64 replay on the card against the same replay on the host CPU: the
+# same decisions, positions apart by roundoff only
+PIPE_F64_TOL_M = 1e-6
 
 
 def _fail(msg):
@@ -496,9 +522,9 @@ def _chol_check(torch, label, S, b, not_spd=False):
 
 def phase_chol(torch, card):
     from rtk_visual_inertial_navigation_tpu_torch.ops.pallas_chol_lanes \
-        import (_factor_cuda, chol_factor_lanes, chol_factor_lanes_plain,
-                chol_solve_factored, chol_solve_factored_plain,
-                chol_solve_lanes)
+        import (_factor_cluster, _factor_cuda, chol_factor_lanes,
+                chol_factor_lanes_plain, chol_solve_factored,
+                chol_solve_factored_plain, chol_solve_lanes)
 
     gen = torch.Generator().manual_seed(2)
     res = {}
@@ -562,10 +588,33 @@ def phase_chol(torch, card):
             _fail(f"chol flagship: cluster {cluster} gives another factor")
         sweep[cluster] = _device_ms(fn, 20, "chol_lanes_factor")
     res["flagship"]["factor"]["cluster_device_ms"] = sweep
-    print(f"phase 4: chol kernels match their plain versions at both "
+    # the pipeline's one window: every cluster size that fits, against the
+    # launcher's own choice
+    B, n = CHOL_SHAPES["pipeline"]
+    S, _ = _spd_systems(gen, B, n)
+    L_ref, _ = chol_factor_lanes(S)
+    psweep = {}
+    for cluster in range(1, 9):
+        fn = lambda: _factor_cuda(S, cluster)
+        try:
+            L_c = fn()[0]
+        except ValueError:              # its CTAs do not fit
+            psweep[cluster] = None
+            continue
+        if not torch.equal(L_c, L_ref):
+            _fail(f"chol pipeline: cluster {cluster} gives another factor")
+        psweep[cluster] = dict(
+            device_ms=_device_ms(fn, 20, "chol_lanes_factor"),
+            ms=_time_ms(fn, 50))
+    pipe = res["pipeline"]["factor"]
+    pipe["cluster"] = _factor_cluster(B, n)
+    pipe["cluster_sweep"] = psweep
+    print(f"phase 4: chol kernels match their plain versions at all "
           f"shapes (k = 1, {COV_COLS}) and in {len(cases)} more cases; "
           f"flagship factor device ms by CTAs per system "
-          f"{json.dumps(sweep)} on {card}", flush=True)
+          f"{json.dumps(sweep)}; pipeline B={B} n={n} factor by CTAs per "
+          f"system (launcher takes {pipe['cluster']}) {json.dumps(psweep)} "
+          f"on {card}", flush=True)
     return res
 
 
@@ -705,6 +754,188 @@ def phase_vi(torch, dev, card):
     return dict(gate, updates_per_s=ups, latency_ms=lat_ms)
 
 
+def _pipeline_cfg(torch, sim, f32):
+    """bench.py --pipeline's estimator configuration (bench.py:56-65)."""
+    import numpy as np
+
+    from rtk_visual_inertial_navigation_tpu_torch.config import \
+        EstimatorConfig
+    from rtk_visual_inertial_navigation_tpu_torch.ops import lie
+    q_ic = lie.rot_to_quat(torch.from_numpy(sim.cfg.r_ic)).numpy()
+    return EstimatorConfig(
+        nf=10, nl=48, nb=32, max_obs=256, imu_capacity=128, average_imu=40,
+        qic=np.tile(q_ic, (2, 1)), tic=np.tile(sim.cfg.t_ic, (2, 1)),
+        anchor_ecef=sim.anchor_ecef, enu_to_ecef=sim.enu_to_ecef,
+        max_gnss_pr=160, max_gnss_cp=160, max_gnss_dopp=160,
+        min_sats_per_epoch=6, initial_gnss_boost_epochs=5,
+        min_fix_continuity=1, fix_continue_threshold=3,
+        use_gnss=True, use_doppler=True, use_rtd=True, use_rtk=True,
+        use_n_resolve=True,
+        solve_step_dtype=("float32" if f32 else "same"))
+
+
+# host time of the estimator's stages, by method (an outer stage's time
+# includes what it calls)
+PIPE_STAGES = {"solve": "_optimize", "marginalize": "_marginalize_oldest",
+               "drop_frame": "_drop_second_newest",
+               "preintegrate": "_preintegrate_buffer",
+               "triangulate": "_triangulate_new",
+               "outliers": "_reject_outliers", "integer_fix": "_integer_solve",
+               "condense_chains": "_condense_gnss_runs",
+               "prior_sync": "_sync_prior_with_features"}
+
+
+def _pipeline_replay(est, sim, stage_log=None):
+    """The bench's replay (``pipeline.replay``, bench.py:67-80).  Returns
+    the host stamp after each event and the per-event ``rtk_fixed`` flags;
+    with ``stage_log`` (a list), appends each event's host seconds by
+    stage."""
+    from rtk_visual_inertial_navigation_tpu_torch.pipeline import replay
+    cur = {}
+    if stage_log is not None:
+        depth = [0]
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                depth[0] += 1
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    depth[0] -= 1
+                    if depth[0] == 0:
+                        cur[name] = cur.get(name, 0.0) \
+                            + time.perf_counter() - t0
+            return run
+        for name, meth in PIPE_STAGES.items():
+            setattr(est, meth, timed(name, getattr(est, meth)))
+    stamps, fixed = [], []
+
+    def on_event(i):
+        stamps.append(time.time())
+        fixed.append(bool(est.rtk_fixed))
+        if stage_log is not None:
+            stage_log.append(dict(cur))
+            cur.clear()
+
+    replay(est, sim, on_event=on_event)
+    return stamps, fixed
+
+
+def phase_pipeline(torch, dev, card):
+    import numpy as np
+
+    from rtk_visual_inertial_navigation_tpu_torch.ambiguity import \
+        fix_differences
+    from rtk_visual_inertial_navigation_tpu_torch.io import \
+        evaluate_trajectory
+
+    from rtk_visual_inertial_navigation_tpu_torch.ops.launches import \
+        LAUNCHES
+    from rtk_visual_inertial_navigation_tpu_torch.pipeline import Estimator
+    from rtk_visual_inertial_navigation_tpu_torch.sim import (SimConfig,
+                                                              simulate)
+
+    t0 = time.time()
+    sim = simulate(SimConfig(duration=PIPE_DURATION, **PIPE_SIM))
+    t_sim = time.time() - t0
+    est = Estimator(_pipeline_cfg(torch, sim, f32=True), device=dev)
+    stage_log = []
+    LAUNCHES.clear()
+    t0 = time.time()
+    stamps, _ = _pipeline_replay(est, sim, stage_log)
+    torch.cuda.synchronize()
+    t_run = time.time() - t0
+    launches = dict(LAUNCHES)
+
+    # the gate of tests/test_pipeline_gnss.py:117-138
+    bias = est.gnss.bias
+    wrong = [(i, r, n) for (i, r, n) in est._last_fix
+             if n != int(sim.rtk_ambiguities[bias.key[i][1]]
+                         - sim.rtk_ambiguities[bias.key[r][1]])]
+    errs = [float(np.linalg.norm(p - sim.p[np.argmin(np.abs(sim.imu_t
+                                                             - t))]))
+            for (t, p, q, v) in est.trajectory[-10:]]
+    fails = []
+    if not est.initialized:
+        fails.append("not initialized")
+    if not est.rtk_fixed:
+        fails.append("no fixed solution at the end")
+    if not est._last_fix or wrong:
+        fails.append(f"fixed double differences {wrong or 'none'} are not "
+                     f"the simulated integers")
+    if not (len(errs) == 10 and max(errs) < 0.02):
+        fails.append(f"last 10 positions err up to {max(errs):.4f} m")
+    for name in CHOL_KERNELS:
+        if not launches.get(name, 0):
+            fails.append(f"the replay never launched the {name} kernel")
+    if fails:
+        _fail("pipeline gate: " + "; ".join(fails))
+
+    # the whole trajectory against truth, RTK convention (no alignment)
+    traj = evaluate_trajectory(
+        [t for (t, _, _, _) in est.trajectory],
+        np.stack([p for (_, p, _, _) in est.trajectory]), sim.imu_t, sim.p,
+        align=False)
+
+    # bench.py:82-95: steady state after 12 warm-up frames
+    steady = np.diff(np.asarray(stamps))[PIPE_WARMUP:]
+    n_frames = len(stamps)
+    stages = {}
+    for log in stage_log[PIPE_WARMUP + 1:]:
+        for k, v in log.items():
+            stages[k] = stages.get(k, 0.0) + v
+    per_frame_ms = {k: round(1e3 * v / len(steady), 3)
+                    for k, v in sorted(stages.items(), key=lambda x: -x[1])}
+    per_frame_ms["other"] = round(1e3 * (steady.sum() - sum(stages.values()))
+                                  / len(steady), 3)
+    out = dict(
+        frames_per_s=1.0 / float(np.mean(steady)),
+        median_ms=1e3 * float(np.median(steady)),
+        p90_ms=1e3 * float(np.percentile(steady, 90)),
+        frames_timed=int(len(steady)), warmup_frames_skipped=PIPE_WARMUP,
+        n_frames_total=n_frames, duration_s=PIPE_DURATION,
+        max_err_last10_m=max(errs), mae_3d_m=traj.mae_3d,
+        n_associated=traj.n_associated, n_fixed_dd=len(est._last_fix),
+        chain_stats=est._chain_stats, launches=launches,
+        launches_per_frame={k: v / n_frames for k, v in launches.items()},
+        stage_ms_per_frame=per_frame_ms, replay_s=t_run, sim_s=t_sim)
+    print(f"phase 6: pipeline RTK-VI {PIPE_DURATION:g} s f32 on {card}: "
+          f"{json.dumps(out)}", flush=True)
+
+    # 6b: bench.py --smoke's sequence in f64 on the card and on the host
+    sim8 = simulate(SimConfig(duration=PIPE_SMOKE_DURATION, **PIPE_SIM))
+    runs = {}
+    for where in (dev, "cpu"):
+        e = Estimator(_pipeline_cfg(torch, sim8, f32=False), device=where)
+        t0 = time.time()
+        _, fixed = _pipeline_replay(e, sim8)
+        runs[str(where)] = (e, fixed, time.time() - t0)
+    (ec, fc, tc), (eh, fh, th) = runs[str(dev)], runs["cpu"]
+    pc = np.stack([p for (_, p, _, _) in ec.trajectory])
+    ph = np.stack([p for (_, p, _, _) in eh.trajectory])
+    fails = []
+    if pc.shape != ph.shape:
+        _fail(f"pipeline f64: {len(pc)} frames on the card, {len(ph)} on "
+              f"the cpu")
+    diff = float(np.abs(pc - ph).max())
+    if not diff <= PIPE_F64_TOL_M:
+        fails.append(f"positions differ by {diff:.3e} m")
+    if fc != fh:
+        where = [i for i, (a, b) in enumerate(zip(fc, fh)) if a != b]
+        fails.append(f"rtk_fixed flags differ at events {where}")
+    if fix_differences(ec._last_fix) != fix_differences(eh._last_fix):
+        fails.append("the last fixes differ")
+    if fails:
+        _fail("pipeline f64 card vs cpu: " + "; ".join(fails))
+    print(f"phase 6b: pipeline RTK-VI {PIPE_SMOKE_DURATION:g} s f64: "
+          f"{len(pc)} frames, card vs cpu max position difference "
+          f"{diff:.3e} m (tol {PIPE_F64_TOL_M:g}), the same {len(fc)} "
+          f"rtk_fixed flags ({sum(fc)} fixed) and fixes; replay {tc:.1f} s "
+          f"on the card, {th:.1f} s on the cpu", flush=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -735,6 +966,7 @@ def main():
     phase_small_reference(torch, dev)
     cres = phase_chol(torch, card)
     vres = phase_vi(torch, dev, card)
+    pres = phase_pipeline(torch, dev, card)
 
     n = launches.get("proj_segments", 0)
     if n == 0:
@@ -742,7 +974,7 @@ def main():
     for name in CHOL_KERNELS:
         if not launches.get(name, 0) or not vres["launches"].get(name, 0):
             _fail(f"a window solve never launched the {name} kernel")
-    fl, vi = cres["flagship"], cres["vi"]
+    fl, vi, pl = cres["flagship"], cres["vi"], cres["pipeline"]
     kernels = [dict(
         name="proj_segments", route="cuda",
         source=f"{PKG}/ops/csrc/proj_segments.cu",
@@ -763,7 +995,11 @@ def main():
         pick = (lambda r: r["factor"]) if key == "factor" else \
             (lambda r: r["solve"][1])
         main = pick(fl)
-        extra = dict(vi_shape=dict(B=vi["B"], n=vi["n"], **pick(vi)))
+        extra = dict(vi_shape=dict(B=vi["B"], n=vi["n"], **pick(vi)),
+                     pipeline_shape=dict(B=pl["B"], n=pl["n"], **pick(pl)),
+                     launches_per_pipeline_replay=pres["launches"][name],
+                     launches_per_pipeline_frame=pres[
+                         "launches_per_frame"][name])
         if key == "solve":
             extra.update(k16=fl["solve"][COV_COLS],
                          vi_k16=vi["solve"][COV_COLS])
@@ -779,8 +1015,9 @@ def main():
             library_ms=main["library_ms"], device_ms=main["device_ms"],
             shape=dict(B=fl["B"], n=fl["n"]),
             launches_per_vi_solve=vres["launches"][name], **extra,
-            phase="phases 3 and 5 (the f32 step and covariance of both "
-                  "window solves); timed in phase 4"))
+            phase="phases 3, 5 and 6 (the f32 step and covariance of the "
+                  "window solves, the f32 step of the pipeline's solves); "
+                  "timed in phase 4"))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,13 @@ function here has a counterpart of the same name there.  The port imports
 ``torch`` only.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU they raise instead of falling back.
 
-The ported slice is the flagship batched RTK-VI window solve
-(``parallel.problems_gnss.batched_rtk_solve``), whose projection step runs
-through the hand-written CUDA kernel ``ops/csrc/proj_segments.cu``.
+Ported so far: the flagship batched RTK-VI window solve
+(``parallel.problems_gnss.batched_rtk_solve``, its projection step on the
+hand-written CUDA kernel ``ops/csrc/proj_segments.cu``), the batched VI
+window solve (``parallel.batched_vi_solve``), the batched f32 Cholesky
+kernels of every f32 step (``ops/pallas_chol_lanes.py``), and the
+estimator pipeline (``pipeline.Estimator``, driven by ``pipeline.replay``
+over ``sim.simulate``'s sequences).
 """
 
 from .device import full_precision, resolve_device  # noqa: F401

@@ -81,3 +81,96 @@ def imu_factor_batch(state: WindowState, pre: Preintegrated, pbg, g_world,
     m = valid.to(res.dtype)
     return FactorBatch(res * m[..., None], jac * m[..., None, None], gidx,
                        valid)
+
+
+def merge_preintegrations(pre_a: Preintegrated, pre_b: Preintegrated
+                          ) -> Preintegrated:
+    """Compose two consecutive preintegrated intervals a (i->m) and b (m->j)
+    (leading batch dims allowed).
+
+    Used when the sliding window drops a middle frame and its two IMU
+    intervals must fuse (SlideWindowFrame, rvi/swf/swf.cpp:239-295 — the
+    reference re-propagates raw samples; this composes in closed form).
+
+    Composition rules (after correcting b's deltas to a's linearization
+    biases via b's bias Jacobian):
+      Δq = Δq_a ⊗ Δq_b
+      Δp = Δp_a + Δv_a T_b + R(Δq_a) Δp_b
+      Δv = Δv_a + R(Δq_a) Δv_b
+    Error/Jacobian/covariance compose via the block chain rule with
+    right-multiplicative (body-frame) rotation errors, the convention of the
+    midpoint propagation (F[3:6,3:6] = I - [w]x dt).
+    """
+    mv = lambda M, x: (M @ x[..., None])[..., 0]
+
+    # 1) re-center b at a's linearization biases
+    dba = pre_a.linearized_ba - pre_b.linearized_ba
+    dbg = pre_a.linearized_bg - pre_b.linearized_bg
+    Jb = pre_b.jacobian
+    pb = (pre_b.delta_p + mv(Jb[..., 0:3, 9:12], dba)
+          + mv(Jb[..., 0:3, 12:15], dbg))
+    vb = (pre_b.delta_v + mv(Jb[..., 6:9, 9:12], dba)
+          + mv(Jb[..., 6:9, 12:15], dbg))
+    qb = lie.quat_normalize(lie.quat_mul(
+        pre_b.delta_q, lie.quat_exp(mv(Jb[..., 3:6, 12:15], dbg))))
+
+    Ra = lie.quat_to_rot(pre_a.delta_q)
+    Tb = pre_b.sum_dt[..., None]
+
+    delta_q = lie.quat_normalize(lie.quat_mul(pre_a.delta_q, qb))
+    delta_p = pre_a.delta_p + pre_a.delta_v * Tb + mv(Ra, pb)
+    delta_v = pre_a.delta_v + mv(Ra, vb)
+
+    I3 = torch.eye(3, dtype=Ra.dtype, device=Ra.device).expand(Ra.shape)
+    Z3 = torch.zeros_like(Ra)
+    Rb_T = lie.quat_to_rot(qb).transpose(-1, -2)
+
+    def bmat(rows):
+        return torch.cat([torch.cat(r, dim=-1) for r in rows], dim=-2)
+
+    # F: sensitivity of composed errors to interval-a errors.  Right-mult
+    # rotation error: R(q ⊞ δθ) = R (I + [δθ]x), so d(R_a x)/dδθ_a = -R_a [x]x.
+    Tb_s = pre_b.sum_dt[..., None, None]
+    F = bmat([
+        [I3, -Ra @ lie.skew(pb), I3 * Tb_s, Z3, Z3],
+        [Z3, Rb_T, Z3, Z3, Z3],
+        [Z3, -Ra @ lie.skew(vb), I3, Z3, Z3],
+        [Z3, Z3, Z3, I3, Z3],
+        [Z3, Z3, Z3, Z3, I3],
+    ])
+    # G maps interval-b delta errors into the composed error.  For the
+    # deterministic bias-sensitivity Jacobian the shared bias enters through
+    # F's bias columns only (G bias rows = 0, to not double count); for the
+    # covariance, b's independently-accumulated bias random walk must be
+    # added (G_cov bias rows = I).
+    G_jac = bmat([
+        [Ra, Z3, Z3, Z3, Z3],
+        [Z3, I3, Z3, Z3, Z3],
+        [Z3, Z3, Ra, Z3, Z3],
+        [Z3, Z3, Z3, Z3, Z3],
+        [Z3, Z3, Z3, Z3, Z3],
+    ])
+    G_cov = bmat([
+        [Ra, Z3, Z3, Z3, Z3],
+        [Z3, I3, Z3, Z3, Z3],
+        [Z3, Z3, Ra, Z3, Z3],
+        [Z3, Z3, Z3, I3, Z3],
+        [Z3, Z3, Z3, Z3, I3],
+    ])
+    tr = lambda M: M.transpose(-1, -2)
+    jac = F @ pre_a.jacobian + G_jac @ pre_b.jacobian
+    cov = (F @ pre_a.covariance @ tr(F)
+           + G_cov @ pre_b.covariance @ tr(G_cov))
+
+    return Preintegrated(
+        delta_p=delta_p,
+        delta_q=delta_q,
+        delta_v=delta_v,
+        jacobian=jac,
+        covariance=cov,
+        sum_dt=pre_a.sum_dt + pre_b.sum_dt,
+        linearized_ba=pre_a.linearized_ba,
+        linearized_bg=pre_a.linearized_bg,
+        gyr_i=pre_a.gyr_i,
+        gyr_j=pre_b.gyr_j,
+    )

@@ -12,8 +12,9 @@
 //
 // Design for Hopper: right-looking blocked Cholesky on 32x32 tiles.  One
 // system is one thread-block cluster of C CTAs: the smallest C whose CTAs
-// fit the shared memory, raised while all B clusters stay resident at once
-// (1 at B=256 n=120, 3 at B=32 n=339).  The lower tiles (i, j), j ≤ i, live
+// fit the shared memory, raised while every CTA keeps at least two tile
+// rows and all B clusters stay resident at once (1 at B=256 n=120, 3 at
+// B=32 n=339, 5 at B=1 n=327).  The lower tiles (i, j), j ≤ i, live
 // in the shared memory of CTA i mod C (row stride 33, odd).  Per panel k:
 //   (a) every CTA reads tile (k, k) from its owner (distributed shared
 //       memory) and warp 0 factors it in registers (no block barrier
@@ -396,15 +397,18 @@ size_t chol_lanes_factor_smem_bytes(int n, int cluster) {
 
 // The cluster size the launcher takes for (B, n) on the current device:
 // the smallest C ≤ 8 whose CTAs fit the opt-in shared memory, raised by one
-// while every CTA still owns a tile row and all B clusters of the larger
-// size are resident at once (a second wave would double the time).  0 if no
-// cluster size fits.
+// while every CTA still owns at least two tile rows and all B clusters of
+// the larger size are resident at once (a second wave would double the
+// time).  With fewer rows per CTA the cluster barriers cost more than the
+// trailing update they split: one system at n=327 (11 tile rows) factors
+// in the same time with 3 to 5 CTAs and 9 % slower with 8 (PERF.md).  0 if
+// no cluster size fits.
 int chol_lanes_factor_cluster(int B, int n) {
   int C = 1;
   size_t shm = 0;
   while (C <= kMaxCluster && configure(n, C, &shm) != cudaSuccess) ++C;
   if (C > kMaxCluster) return 0;
-  while (C + 1 <= kMaxCluster && C + 1 <= num_tiles(n) &&
+  while (C + 1 <= kMaxCluster && 2 * (C + 1) <= num_tiles(n) &&
          one_wave(B, n, C + 1))
     ++C;
   return C;

@@ -2,9 +2,9 @@
 
     python3 -m rtk_visual_inertial_navigation_tpu_torch.profile_chol
 
-At the shapes the f32 step gives them — the VI step (B=256, n=120) and the
-flagship step and covariance (B=32, n=339) — on SPD systems made from a
-seed:
+At the shapes the f32 step gives them — the VI step (B=256, n=120), the
+flagship step and covariance (B=32, n=339) and the estimator pipeline's
+one-window step (B=1, n=327) — on SPD systems made from a seed:
   - the device time per launch of ``csrc/chol_lanes.cu`` (for each number
     of CTAs per system, 1 to 8, that fits) and of ``csrc/chol_lanes_solve.cu`` (1
     and 16 right-hand sides), from ``torch.profiler`` over 20 launches;
@@ -22,7 +22,7 @@ import subprocess
 
 import numpy as np
 
-SHAPES = {"vi": (256, 120), "flagship": (32, 339)}
+SHAPES = {"vi": (256, 120), "flagship": (32, 339), "pipeline": (1, 327)}
 FACTOR_PHASES = ("load S", "diagonal tile (warp 0; warps 1-7 store the "
                  "last panel) + barrier", "panel solve + pushes",
                  "cluster barrier 1", "trailing update", "cluster barrier 2",

@@ -3,10 +3,13 @@
 Factor batches assemble into (H, g, cost); the trust region is Powell
 dogleg with the reference's iteration budget (≤8, MAX_TRUST_REGION_RADIUS =
 1e15).  Every tensor carries the window batch as leading dims, and the
-loop is a Python loop of fixed length whose accept/reject decisions are
-``torch.where`` selects per window: nothing in it reads a device value on
-the host.  Masked factors contribute zeros; masked parameters get unit
-diagonal and zero gradient, so their step is zero.
+loop is a Python loop of at most ``max_iters`` steps whose accept/reject
+decisions are ``torch.where`` selects per window.  Nothing in it reads a
+device value on the host, except that with ``f_tol > 0`` (the estimator's
+solves) each step reads one flag: whether every window has converged, to
+stop early as the JAX solver's ``while_loop`` does.  Masked factors
+contribute zeros; masked parameters get unit diagonal and zero gradient,
+so their step is zero.
 """
 
 from __future__ import annotations
@@ -355,6 +358,8 @@ def dogleg_solve(eval_fn: Callable, retract_fn: Callable, state0,
             carry = _select(~done, new, carry)
             aux = _select(~done, new_aux, aux)
             done = done | converged
+            if bool(done.all()):
+                break
         else:
             carry, aux = new, new_aux
     return carry

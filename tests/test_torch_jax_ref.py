@@ -26,3 +26,23 @@ def to_numpy(x):
     if hasattr(x, "_asdict"):
         return {k: to_numpy(v) for k, v in x._asdict().items()}
     return np.asarray(x)
+
+
+def cheap_jit(fn, static_argnums=()):
+    """``jax.jit(fn)`` compiled with the cheap options above, once per
+    signature of its arguments (tree structure, shapes, dtypes and the
+    static arguments' values): for a reference called eagerly, where
+    dispatching op by op costs more than one cheap compile."""
+    jitted = jax.jit(fn, static_argnums=static_argnums)
+    cache = {}
+
+    def call(*args):
+        dyn = [a for i, a in enumerate(args) if i not in static_argnums]
+        leaves, tree = jax.tree.flatten(dyn)
+        key = (tree, tuple((np.shape(x), np.result_type(x)) for x in leaves),
+               tuple(args[i] for i in static_argnums))
+        if key not in cache:
+            cache[key] = jitted.lower(*args).compile(
+                compiler_options=CHEAP_XLA)
+        return cache[key](*dyn)
+    return call

@@ -229,13 +229,14 @@ def test_chol_lanes_kernel_matches_plain(B, n, not_spd):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 16])
 @pytest.mark.parametrize("B,n,not_spd", [
-    (256, 120, False), (32, 339, False), (300, 37, False), (3, 400, False),
-    (4, 40, True)])
+    (256, 120, False), (32, 339, False), (1, 327, False), (300, 37, False),
+    (3, 400, False), (4, 40, True)])
 def test_chol_factor_and_solve_kernels_match_plain(B, n, not_spd, k):
     """The factor kernel (L, info) and the solve kernel (x, k right-hand
     sides) against their plain versions, at the shapes of the VI step
-    (256, 120) and the flagship step and covariance (32, 339), a ragged n,
-    an n above the flagship's, and a non-SPD input (last pivot negative)."""
+    (256, 120), the flagship step and covariance (32, 339) and the
+    estimator pipeline's one-window step (1, 327), a ragged n, an n above
+    the flagship's, and a non-SPD input (last pivot negative)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     S, _ = _spd_systems(8, B, n, not_spd)
@@ -277,6 +278,25 @@ def test_chol_factor_kernel_cluster_sizes_agree(cluster):
     S, _ = _spd_systems(10, 32, 339)
     L, info = _factor_cuda(S, cluster)
     L0, _ = chol_factor_lanes(S)
+    torch.cuda.synchronize()
+    assert not bool(info.any())
+    torch.testing.assert_close(L, L0, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", range(1, 9))
+def test_chol_factor_kernel_cluster_sizes_at_one_window(cluster):
+    """At the estimator pipeline's one-window shape (B=1, n=327) every
+    cluster size either is refused (its CTAs do not fit the shared memory)
+    or gives the launcher's factor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    S, _ = _spd_systems(13, 1, 327)
+    L0, _ = chol_factor_lanes(S)
+    try:
+        L, info = _factor_cuda(S, cluster)
+    except ValueError:
+        return
     torch.cuda.synchronize()
     assert not bool(info.any())
     torch.testing.assert_close(L, L0, rtol=0, atol=0)
