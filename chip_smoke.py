@@ -52,7 +52,23 @@ Phases (any failure exits non-zero and prints no result line):
      6b. the bench's 8 s ``--smoke`` sequence in f64 on the card and on the
      host CPU: every frame's position within PIPE_F64_TOL_M, the same
      per-frame ``rtk_fixed`` flags and the same fixed integers;
-  7. print the ``kernels`` JSON line, then the card line, then the final
+  7. the bench's 8 s sequence written as a bz2 rosbag (``sim_to_bag``),
+     read by the native reader (message for message equal to the Python
+     reader's) and replayed by ``replay_bag`` into the estimator on the
+     card, f32 step, a ``ResultWriter`` attached, counts zeroed and read
+     around it: phase 6's gate, one CSV row per IMU sample, the CSV read
+     back through ``io/evaluate.py`` against the bag's ground truth;
+     frames/s, parse ms per message;
+  8. a. the image frontend at full width (752x480 stereo, ``max_cnt`` 350,
+     ``min_dist`` 30) on 24 textured frames under a known warp, on the card
+     and on the host CPU: the same ids on every frame, points within
+     FE_PX_TOL, the median tracking error against the warp; ms, kernels
+     and host syncs per frame;
+     b. images -> ``TrackerFrontend`` -> ``Estimator`` on the card at
+     tests/test_tracker_frontend.py's configuration and bounds;
+  9. the demo's ``main`` on the card in each of its five modes: initialized,
+     finite positions, one CSV row per IMU sample;
+  10. print the ``kernels`` JSON line, then the card line, then the final
      ``{"ok": true, ...}`` line.
 
 It imports nothing of the JAX package.
@@ -60,10 +76,15 @@ It imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 PKG = "rtk_visual_inertial_navigation_tpu_torch"
@@ -103,6 +124,34 @@ PIPE_WARMUP = 12
 # the f64 replay on the card against the same replay on the host CPU: the
 # same decisions, positions apart by roundoff only
 PIPE_F64_TOL_M = 1e-6
+# phase 7: the pipeline's sequence written as a bz2 rosbag and replayed
+# through replay_bag (main3.cpp's loop) with the f32 step and a ResultWriter;
+# the 8 s --smoke sequence (phase 6 replays the 30 s one), which keeps the
+# whole script near half of its 1200 s limit
+BAG_DURATION = PIPE_SMOKE_DURATION
+# phase 8a: the image frontend at the reference's width (752x480,
+# SURVEY.md:594; MAX_CNT=350, MIN_DIST=30, SURVEY.md:264) on frames of
+# Gaussian blobs made from a seed, each frame the texture under a known
+# rotation + translation, with a right image shifted by a known disparity
+FE_H, FE_W = 480, 752
+FE_FRAMES = 24
+FE_BLOBS = 8000
+FE_MAX_CNT, FE_MIN_DIST = 350, 30
+FE_FOCAL = 460.0
+FE_DISPARITY = 10.0           # px, the right image's shift
+FE_ROT_PER_FRAME = 0.002      # rad about the image center
+FE_SHIFT_PER_FRAME = (2.5, -1.2)   # px
+# tracked points on the card within this many pixels of the port's CPU
+# frontend on the same frames (both sum float32 patches, in other orders)
+FE_PX_TOL = 0.01
+# and the median tracking error against the known warp (px)
+FE_TRUTH_TOL_PX = 0.25
+FE_PROFILE_FRAMES = 3
+# phase 8b: tests/test_tracker_frontend.py:34-63's configuration
+WIRE_H, WIRE_W, WIRE_F = 240, 320, 160.0
+# phase 9: the demo's five modes, a few seconds each
+DEMO_MODES = ("rtk", "rtd", "spp", "spp_cp", "vi")
+DEMO_DURATION = 4.0
 
 
 def _fail(msg):
@@ -822,6 +871,55 @@ def _pipeline_replay(est, sim, stage_log=None):
     return stamps, fixed
 
 
+def _fix_keys(est):
+    """The phase-bias slots' keys as they were when ``est`` made its last
+    integer fix (a slot of the fix may be freed or reused later, by a
+    cycle slip the estimator forces or by staleness).  Call before the
+    replay; read ``["keys"]`` after it."""
+    snap = {"keys": None}
+    inner = est._integer_solve
+
+    def run(*a, **kw):
+        out = inner(*a, **kw)
+        snap["keys"] = list(est.gnss.bias.key)
+        return out
+    est._integer_solve = run
+    return snap
+
+
+def _pipeline_gate(est, sim, launches, label, keys):
+    """The gate of tests/test_pipeline_gnss.py:117-138 on a replay of
+    ``sim``: initialized, fixed at the end, every fixed double difference
+    equal to the simulated integer (the slots' satellites as they were at
+    the fix, ``keys``), the last 10 frames within 0.02 m; and the Cholesky
+    kernels launched.  Returns the last 10 frames' errors."""
+    import numpy as np
+    wrong = [(i, r, n) for (i, r, n) in est._last_fix
+             if keys is None or keys[i] is None or keys[r] is None
+             or n != int(sim.rtk_ambiguities[keys[i][1]]
+                         - sim.rtk_ambiguities[keys[r][1]])]
+    errs = [float(np.linalg.norm(p - sim.p[np.argmin(np.abs(sim.imu_t
+                                                             - t))]))
+            for (t, p, q, v) in est.trajectory[-10:]]
+    fails = []
+    if not est.initialized:
+        fails.append("not initialized")
+    if not est.rtk_fixed:
+        fails.append("no fixed solution at the end")
+    if not est._last_fix or wrong:
+        fails.append(f"fixed double differences {wrong or 'none'} are not "
+                     f"the simulated integers")
+    if not (len(errs) == 10 and max(errs) < 0.02):
+        fails.append(f"last 10 positions err up to "
+                     f"{max(errs, default=float('nan')):.4f} m")
+    for name in CHOL_KERNELS:
+        if not launches.get(name, 0):
+            fails.append(f"the replay never launched the {name} kernel")
+    if fails:
+        _fail(f"{label}: " + "; ".join(fails))
+    return errs
+
+
 def phase_pipeline(torch, dev, card):
     import numpy as np
 
@@ -840,6 +938,7 @@ def phase_pipeline(torch, dev, card):
     sim = simulate(SimConfig(duration=PIPE_DURATION, **PIPE_SIM))
     t_sim = time.time() - t0
     est = Estimator(_pipeline_cfg(torch, sim, f32=True), device=dev)
+    fix = _fix_keys(est)
     stage_log = []
     LAUNCHES.clear()
     t0 = time.time()
@@ -848,29 +947,7 @@ def phase_pipeline(torch, dev, card):
     t_run = time.time() - t0
     launches = dict(LAUNCHES)
 
-    # the gate of tests/test_pipeline_gnss.py:117-138
-    bias = est.gnss.bias
-    wrong = [(i, r, n) for (i, r, n) in est._last_fix
-             if n != int(sim.rtk_ambiguities[bias.key[i][1]]
-                         - sim.rtk_ambiguities[bias.key[r][1]])]
-    errs = [float(np.linalg.norm(p - sim.p[np.argmin(np.abs(sim.imu_t
-                                                             - t))]))
-            for (t, p, q, v) in est.trajectory[-10:]]
-    fails = []
-    if not est.initialized:
-        fails.append("not initialized")
-    if not est.rtk_fixed:
-        fails.append("no fixed solution at the end")
-    if not est._last_fix or wrong:
-        fails.append(f"fixed double differences {wrong or 'none'} are not "
-                     f"the simulated integers")
-    if not (len(errs) == 10 and max(errs) < 0.02):
-        fails.append(f"last 10 positions err up to {max(errs):.4f} m")
-    for name in CHOL_KERNELS:
-        if not launches.get(name, 0):
-            fails.append(f"the replay never launched the {name} kernel")
-    if fails:
-        _fail("pipeline gate: " + "; ".join(fails))
+    errs = _pipeline_gate(est, sim, launches, "pipeline gate", fix["keys"])
 
     # the whole trajectory against truth, RTK convention (no alignment)
     traj = evaluate_trajectory(
@@ -936,6 +1013,442 @@ def phase_pipeline(torch, dev, card):
     return out
 
 
+def _sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _frame_stamps(est):
+    """A host stamp after each GNSS or image frame ``est`` processes."""
+    stamps = []
+    for meth in ("process_gnss", "process_image"):
+        def run(*a, _fn=getattr(est, meth), **kw):
+            out = _fn(*a, **kw)
+            stamps.append(time.time())
+            return out
+        setattr(est, meth, run)
+    return stamps
+
+
+def phase_bag(torch, dev, card, duration=BAG_DURATION):
+    """Phase 7: sim -> bz2 rosbag -> native reader -> replay_bag into the
+    estimator on the card, one CSV row per IMU sample, read back through
+    io/evaluate.py against the bag's ground-truth CSV."""
+    import numpy as np
+
+    from rtk_visual_inertial_navigation_tpu_torch.io import (
+        ResultWriter, evaluate_trajectory)
+    from rtk_visual_inertial_navigation_tpu_torch.io.bag_writer import \
+        sim_to_bag
+    from rtk_visual_inertial_navigation_tpu_torch.io.reference_bag import (
+        iter_bag_events, read_bag, replay_bag)
+    from rtk_visual_inertial_navigation_tpu_torch.native import \
+        read_bag_native
+    from rtk_visual_inertial_navigation_tpu_torch.ops.launches import \
+        LAUNCHES
+    from rtk_visual_inertial_navigation_tpu_torch.pipeline import Estimator
+    from rtk_visual_inertial_navigation_tpu_torch.sim import (SimConfig,
+                                                              simulate)
+
+    sim = simulate(SimConfig(duration=duration, **PIPE_SIM))
+    with tempfile.TemporaryDirectory() as tmp:
+        bag, gt, csv = (os.path.join(tmp, n)
+                        for n in ("seq.bag", "gt.csv", "result.csv"))
+        t0 = time.perf_counter()
+        sim_to_bag(sim, bag, gt, compression="bz2")
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native = read_bag_native(bag)
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        python = read_bag(bag)
+        t_python = time.perf_counter() - t0
+        if len(native) != len(python) or any(
+                (a.topic, a.msg_type, a.t, a.raw)
+                != (b.topic, b.msg_type, b.t, b.raw)
+                for a, b in zip(native, python)):
+            _fail("bag: the native reader's messages differ from the "
+                  "Python reader's")
+        n_msgs = len(native)
+        t0 = time.perf_counter()
+        kinds = [k for k, _, _ in iter_bag_events(bag)]
+        t_events = time.perf_counter() - t0
+
+        est = Estimator(_pipeline_cfg(torch, sim, f32=True), device=dev)
+        writer = ResultWriter(csv, anchor_ecef=sim.anchor_ecef,
+                              enu_to_ecef=sim.enu_to_ecef)
+        est.attach_writer(writer)
+        stamps = _frame_stamps(est)
+        fix = _fix_keys(est)
+        LAUNCHES.clear()
+        t0 = time.time()
+        replay_bag(bag, est)
+        _sync(torch, dev)
+        t_run = time.time() - t0
+        launches = dict(LAUNCHES)
+        writer.close()
+        errs = _pipeline_gate(est, sim, launches, "bag replay gate",
+                              fix["keys"])
+        rows = np.loadtxt(csv, delimiter=",", skiprows=1, ndmin=2)
+        gt_rows = np.loadtxt(gt, delimiter=",", skiprows=1, ndmin=2)
+        bag_bytes = os.path.getsize(bag)
+
+    # one row per IMU sample after the first solved frame, time-ordered,
+    # and every 10 Hz ground-truth point (1 s after it) associated within
+    # evaluate.py's 2.5 ms
+    t_first = est.trajectory[0][0]
+    n_expected = int(np.sum(sim.imu_t > t_first))
+    times = rows[:, 0] * 1e-9
+    keep = gt_rows[:, 0] > t_first + 1.0
+    m = evaluate_trajectory(times, rows[:, 1:4], gt_rows[keep, 0],
+                            gt_rows[keep, 1:4], align=False)
+    fails = []
+    if len(rows) != n_expected:
+        fails.append(f"{len(rows)} CSV rows for {n_expected} IMU samples")
+    if not bool(np.all(np.diff(times) > 0)):
+        fails.append("CSV rows are not time-ordered")
+    if m.n_associated != int(keep.sum()) or not m.mae_3d < 0.05:
+        fails.append(f"CSV vs ground truth: {m.n_associated} of "
+                     f"{int(keep.sum())} associated, 3-D MAE {m.mae_3d}")
+    if kinds.count("imu") != len(sim.imu_t):
+        fails.append("the bag does not hold every IMU sample")
+    if fails:
+        _fail("bag replay: " + "; ".join(fails))
+    steady = np.diff(np.asarray(stamps))[PIPE_WARMUP:]
+    out = dict(
+        frames_per_s=1.0 / float(np.mean(steady)),
+        median_ms=1e3 * float(np.median(steady)),
+        p90_ms=1e3 * float(np.percentile(steady, 90)),
+        frames_timed=int(len(steady)), n_frames_total=len(stamps),
+        duration_s=duration, bag_bytes=bag_bytes, messages=n_msgs,
+        write_s=t_write, native_parse_ms_per_msg=1e3 * t_native / n_msgs,
+        python_parse_ms_per_msg=1e3 * t_python / n_msgs,
+        decode_ms_per_msg=1e3 * t_events / n_msgs, csv_rows=len(rows),
+        csv_mae_3d_m=m.mae_3d, csv_associated=m.n_associated,
+        max_err_last10_m=max(errs), n_fixed_dd=len(est._last_fix),
+        launches=launches,
+        launches_per_frame={k: v / len(stamps) for k, v in launches.items()},
+        replay_s=t_run)
+    print(f"phase 7: bag replay {duration:g} s (bz2, native reader) f32 on "
+          f"{card}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def _blob_frames(torch, dev, n_frames, H, W, n_blobs, seed=0):
+    """Frames of a texture of Gaussian blobs made from ``seed``: frame f is
+    the texture under T_f(x) = R(θ_f)(x − c) + c + t_f (θ_f, t_f grow by
+    FE_ROT_PER_FRAME and FE_SHIFT_PER_FRAME per frame; c the image center),
+    rendered analytically in float64 on ``dev``, with a right image shifted
+    left by FE_DISPARITY.  Returns host [(left, right)] and the warps
+    [(R_f, t_f)]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    margin = 150.0
+    u = np.stack([rng.uniform(-margin, W + margin, n_blobs),
+                  rng.uniform(-margin, H + margin, n_blobs)], -1)
+    amp = torch.tensor(rng.uniform(0.3, 1.0, n_blobs), device=dev)
+    sig = torch.tensor(rng.uniform(1.5, 3.0, n_blobs), device=dev)
+    c = np.array([W / 2.0, H / 2.0])
+    r = 14                                  # 4.7 σ of the widest blob
+    off = torch.arange(-r, r + 1, device=dev)
+
+    def render(centers):
+        cen = torch.tensor(centers, device=dev)
+        base = torch.round(cen).long()
+        xs = (base[:, 0, None, None] + off[None, None, :]).expand(-1, 2 * r
+                                                                  + 1, -1)
+        ys = (base[:, 1, None, None] + off[None, :, None]).expand(-1, -1, 2
+                                                                  * r + 1)
+        d2 = ((xs - cen[:, 0, None, None]) ** 2
+              + (ys - cen[:, 1, None, None]) ** 2)
+        val = amp[:, None, None] * torch.exp(-d2 / (2 * sig[:, None, None]
+                                                    ** 2))
+        ok = (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)
+        img = torch.zeros(H * W, dtype=torch.float64, device=dev)
+        img.index_add_(0, (ys * W + xs)[ok], val[ok])
+        return img.reshape(H, W).cpu().numpy()
+
+    frames, warps = [], []
+    for f in range(n_frames):
+        th = FE_ROT_PER_FRAME * f
+        t = np.asarray(FE_SHIFT_PER_FRAME) * f
+        R = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        centers = (u - c - t) @ R + c           # T_f⁻¹ of each blob center
+        frames.append((render(centers),
+                       render(centers - [FE_DISPARITY, 0.0])))
+        warps.append((R, t))
+    return frames, warps
+
+
+def _warp_px(warps, f, g, x):
+    """Pixels ``x`` (N, 2) of frame f mapped to frame g: T_g⁻¹(T_f(x))."""
+    import numpy as np
+    c = np.array([FE_W / 2.0, FE_H / 2.0])
+    (Rf, tf), (Rg, tg) = warps[f], warps[g]
+    u = (x - c) @ Rf.T + c + tf
+    return (u - c - tg) @ Rg + c
+
+
+def _run_frontend(torch, dev, frames, cam):
+    """The frames through a TrackerFrontend on ``dev``: per frame the
+    returned ids and rays and the live slots' pixels, and the host ms of
+    each frame (synchronized)."""
+    from rtk_visual_inertial_navigation_tpu_torch.frontend.tracker_frontend \
+        import TrackerFrontend
+    fe = TrackerFrontend(cam, max_cnt=FE_MAX_CNT, min_dist=FE_MIN_DIST,
+                         device=dev)
+    out, ms = [], []
+    for left, right in frames:
+        t0 = time.perf_counter()
+        ids, xy, ids_r, xy_r = fe.process(left, img_right=right)
+        _sync(torch, dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        live = fe.ok & (fe.ids >= 0)
+        out.append(dict(ids=ids, xy=xy, ids_r=ids_r, xy_r=xy_r,
+                        pid=fe.ids[live].copy(), pts=fe.pts[live].copy()))
+    return out, ms
+
+
+def phase_frontend(torch, dev, card, n_frames=FE_FRAMES):
+    """Phase 8a: the image frontend at full width on the card against the
+    port's CPU frontend on the same frames and against the known warp."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtk_visual_inertial_navigation_tpu_torch.frontend.tracker_frontend \
+        import TrackerFrontend
+    from rtk_visual_inertial_navigation_tpu_torch.models import \
+        PinholeCamera
+
+    t0 = time.time()
+    frames, warps = _blob_frames(torch, dev, n_frames, FE_H, FE_W,
+                                 FE_BLOBS)
+    t_render = time.time() - t0
+    cam = PinholeCamera(fx=FE_FOCAL, fy=FE_FOCAL, cx=FE_W / 2.0,
+                        cy=FE_H / 2.0)
+    card_out, card_ms = _run_frontend(torch, dev, frames, cam)
+    t0 = time.time()
+    cpu_out, cpu_ms = _run_frontend(torch, "cpu", frames, cam)
+    t_cpu = time.time() - t0
+
+    # the card against the CPU: the same ids, points within FE_PX_TOL
+    px_diff = 0.0
+    for f, (a, b) in enumerate(zip(card_out, cpu_out)):
+        for k in ("ids", "ids_r", "pid"):
+            if not np.array_equal(a[k], b[k]):
+                _fail(f"frontend frame {f}: {k} on the card differ from "
+                      f"the cpu's")
+        px_diff = max(px_diff, float(np.abs(a["pts"] - b["pts"]).max(
+            initial=0.0)), FE_FOCAL * float(np.abs(a["xy_r"] - b["xy_r"])
+                                           .max(initial=0.0)))
+    if not px_diff <= FE_PX_TOL:
+        _fail(f"frontend: card and cpu points differ by {px_diff:.3e} px")
+
+    # the tracks against the known warp, and the right matches against the
+    # disparity
+    errs, errs_r, n_tracked = [], [], []
+    for f in range(1, n_frames):
+        a, b = card_out[f - 1], card_out[f]
+        common, ia, ib = np.intersect1d(a["pid"], b["pid"],
+                                        return_indices=True)
+        n_tracked.append(len(common))
+        truth = _warp_px(warps, f - 1, f, a["pts"][ia])
+        errs.append(np.linalg.norm(b["pts"][ib] - truth, axis=1))
+        left = dict(zip(b["pid"], b["pts"]))
+        right = b["xy_r"] * FE_FOCAL + [FE_W / 2.0, FE_H / 2.0]
+        errs_r.append([np.linalg.norm(p - left[i] + [FE_DISPARITY, 0.0])
+                       for i, p in zip(b["ids_r"], right)])
+    errs = np.concatenate(errs)
+    errs_r = np.concatenate([np.asarray(e) for e in errs_r])
+    med, med_r = float(np.median(errs)), float(np.median(errs_r))
+    if not (med < FE_TRUTH_TOL_PX and med_r < FE_TRUTH_TOL_PX):
+        _fail(f"frontend: median error against the warp {med:.4f} px, "
+              f"right against the disparity {med_r:.4f} px")
+    if min(n_tracked) < FE_MAX_CNT // 4:
+        _fail(f"frontend: as few as {min(n_tracked)} tracks survive a frame")
+
+    # launches and host syncs per frame, on a fresh frontend: the first
+    # two frames untraced, then FE_PROFILE_FRAMES traced
+    fe = TrackerFrontend(cam, max_cnt=FE_MAX_CNT, min_dist=FE_MIN_DIST,
+                         device=dev)
+    for left, right in frames[:2]:
+        fe.process(left, img_right=right)
+    _sync(torch, dev)
+    prof_frames = frames[2:2 + FE_PROFILE_FRAMES]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for left, right in prof_frames:
+            fe.process(left, img_right=right)
+        _sync(torch, dev)
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(1 for e in ev if "Memcpy" in e.name or "Memset" in e.name)
+    fe2 = TrackerFrontend(cam, max_cnt=FE_MAX_CNT, min_dist=FE_MIN_DIST,
+                          device=dev)
+    for left, right in frames[:2]:
+        fe2.process(left, img_right=right)
+    _sync(torch, dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for left, right in prof_frames:
+                fe2.process(left, img_right=right)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum(1 for w in caught if "synchroniz" in str(w.message))
+    n_prof = len(prof_frames)
+    out = dict(
+        shape=[FE_H, FE_W], frames=n_frames, blobs=FE_BLOBS,
+        max_cnt=FE_MAX_CNT, min_dist=FE_MIN_DIST,
+        ms_per_frame_median=float(np.median(card_ms[1:])),
+        ms_per_frame_mean=float(np.mean(card_ms[1:])),
+        first_frame_ms=card_ms[0],
+        cpu_ms_per_frame_median=float(np.median(cpu_ms[1:])),
+        kernels_per_frame=(len(ev) - copies) / n_prof,
+        copies_per_frame=copies / n_prof,
+        host_syncs_per_frame=syncs / n_prof,
+        max_px_diff_card_vs_cpu=px_diff, px_tol=FE_PX_TOL,
+        median_err_vs_warp_px=med, p90_err_vs_warp_px=float(
+            np.percentile(errs, 90)),
+        median_right_err_px=med_r,
+        tracks_per_frame_min=int(min(n_tracked)),
+        tracks_per_frame_mean=float(np.mean(n_tracked)),
+        right_matches_per_frame=float(np.mean([len(o["ids_r"])
+                                               for o in card_out[1:]])),
+        ids_total=int(max(o["pid"].max(initial=-1) for o in card_out) + 1),
+        render_s=t_render, cpu_s=t_cpu)
+    print(f"phase 8a: frontend {FE_W}x{FE_H} stereo, card vs cpu and vs "
+          f"the warp, on {card}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def _render_wiring(sim, fi):
+    """tests/test_tracker_frontend.py's renderer: a Gaussian blob image of
+    the landmarks visible at camera frame ``fi``."""
+    import numpy as np
+    H, W, F = WIRE_H, WIRE_W, WIRE_F
+    img = np.zeros((H, W))
+    yy, xx = np.mgrid[0:H, 0:W]
+    for lm in range(sim.landmarks.shape[0]):
+        if not sim.obs_valid[fi, lm]:
+            continue
+        u = F * sim.obs_xy[fi, lm, 0] + W / 2
+        v = F * sim.obs_xy[fi, lm, 1] + H / 2
+        if 5 < u < W - 5 and 5 < v < H - 5:
+            img += np.exp(-((yy - v) ** 2 + (xx - u) ** 2) / (2 * 2.0 ** 2))
+    return img
+
+
+def phase_wiring(torch, dev, card):
+    """Phase 8b: images -> TrackerFrontend -> Estimator on the card at
+    tests/test_tracker_frontend.py:34-63's configuration and bounds."""
+    import numpy as np
+
+    from rtk_visual_inertial_navigation_tpu_torch.config import \
+        EstimatorConfig
+    from rtk_visual_inertial_navigation_tpu_torch.frontend.tracker_frontend \
+        import TrackerFrontend
+    from rtk_visual_inertial_navigation_tpu_torch.models import \
+        PinholeCamera
+    from rtk_visual_inertial_navigation_tpu_torch.ops import lie
+    from rtk_visual_inertial_navigation_tpu_torch.ops.launches import \
+        LAUNCHES
+    from rtk_visual_inertial_navigation_tpu_torch.pipeline import Estimator
+    from rtk_visual_inertial_navigation_tpu_torch.sim import (SimConfig,
+                                                              simulate)
+
+    sim = simulate(SimConfig(duration=6.0, imu_rate=200.0, cam_rate=10.0,
+                             n_landmarks=50, n_sats=4, seed=5))
+    cam = PinholeCamera(fx=WIRE_F, fy=WIRE_F, cx=WIRE_W / 2, cy=WIRE_H / 2)
+    fe = TrackerFrontend(cam, max_cnt=48, min_dist=10, device=dev)
+    q_ic = lie.rot_to_quat(torch.from_numpy(sim.cfg.r_ic)).numpy()
+    cfg = EstimatorConfig(nf=8, nl=64, nb=1, max_obs=320, imu_capacity=64,
+                          average_imu=40, qic=np.tile(q_ic, (2, 1)),
+                          tic=np.tile(sim.cfg.t_ic, (2, 1)))
+    est = Estimator(cfg, device=dev)
+    LAUNCHES.clear()
+    fe_ms, est_ms = [], []
+    t0 = time.time()
+    cam_ptr = 0
+    for i, t in enumerate(sim.imu_t):
+        est.process_imu(t, sim.acc[i], sim.gyr[i])
+        if cam_ptr < len(sim.cam_idx) and sim.cam_idx[cam_ptr] == i:
+            img = _render_wiring(sim, cam_ptr)
+            t1 = time.perf_counter()
+            ids, xy = fe.process(img)
+            t2 = time.perf_counter()
+            if len(ids) >= 5:
+                est.process_image(t, ids, xy)
+            fe_ms.append(1e3 * (t2 - t1))
+            est_ms.append(1e3 * (time.perf_counter() - t2))
+            cam_ptr += 1
+    _sync(torch, dev)
+    t_run = time.time() - t0
+    errs = np.asarray(
+        [np.linalg.norm(p - sim.p[np.argmin(np.abs(sim.imu_t - t))])
+         for (t, p, q, v) in est.trajectory])
+    out = dict(initialized=bool(est.initialized),
+               trajectory=len(est.trajectory),
+               final_err_m=float(errs[-1]) if len(errs) else None,
+               median_err_m=float(np.median(errs)) if len(errs) else None,
+               frames=cam_ptr, ids_total=int(fe._next_id),
+               frontend_ms_per_frame=float(np.median(fe_ms[1:])),
+               estimator_ms_per_frame=float(np.median(est_ms[1:])),
+               launches=dict(LAUNCHES), run_s=t_run)
+    print(f"phase 8b: images -> TrackerFrontend -> Estimator (240x320, "
+          f"max_cnt 48, 6 s, f64 step) on {card}: {json.dumps(out)}",
+          flush=True)
+    # the bounds of tests/test_tracker_frontend.py:58-63
+    if not (est.initialized and len(est.trajectory) > 30
+            and errs[-1] < 1.5 and np.median(errs) < 0.8):
+        _fail("wiring: the trajectory misses the test's bounds (final < "
+              "1.5 m, median < 0.8 m, > 30 entries)")
+    return out
+
+
+def phase_demo(torch, dev, card):
+    """Phase 9: the demo's ``main`` on the card in each mode."""
+    import numpy as np
+
+    from rtk_visual_inertial_navigation_tpu_torch.examples import \
+        run_sim_demo
+    from rtk_visual_inertial_navigation_tpu_torch.ops.launches import \
+        LAUNCHES
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in DEMO_MODES:
+            LAUNCHES.clear()
+            t0 = time.time()
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                r = run_sim_demo.main(["--mode", mode, "--duration",
+                                       str(DEMO_DURATION), "--out", tmp,
+                                       "--device", str(dev)])
+            t_run = time.time() - t0
+            finite = bool(np.isfinite(r["positions"]).all())
+            out = dict(initialized=r["initialized"], frames=r["frames"],
+                       csv_rows=r["csv_rows"],
+                       imu_samples=r["imu_samples_after_first"],
+                       plane_rmse_m=r["plane_rmse"],
+                       height_rmse_m=r["height_rmse"], mae_3d_m=r["mae_3d"],
+                       rtk_fixed=r["rtk_fixed"], finite=finite,
+                       npz=os.path.exists(os.path.join(
+                           tmp, f"{mode}_viz.npz")),
+                       launches=dict(LAUNCHES), run_s=t_run,
+                       timing=r["timing"].splitlines())
+            print(f"phase 9: demo --mode {mode} --duration "
+                  f"{DEMO_DURATION:g} on {card}: {json.dumps(out)}",
+                  flush=True)
+            if not (r["initialized"] and r["frames"] > 0 and finite
+                    and r["csv_rows"] == r["imu_samples_after_first"] > 0
+                    and out["npz"]):
+                _fail(f"demo {mode}: not initialized, non-finite positions "
+                      f"or not one CSV row per IMU sample")
+            res[mode] = out
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -959,6 +1472,11 @@ def main():
         print(f"phase 1: built {name} in {time.time() - t0:.1f} s\n"
               + log.strip(), flush=True)
     from rtk_visual_inertial_navigation_tpu_torch import full_precision
+    from rtk_visual_inertial_navigation_tpu_torch import native
+    t0 = time.time()
+    native._get_lib(), native._get_bag_lib()
+    print(f"phase 1: built the native codec and bag reader (g++) in "
+          f"{time.time() - t0:.1f} s", flush=True)
     full_precision()
 
     kres = phase_kernel_checks(torch, dev, card)
@@ -967,6 +1485,10 @@ def main():
     cres = phase_chol(torch, card)
     vres = phase_vi(torch, dev, card)
     pres = phase_pipeline(torch, dev, card)
+    bres = phase_bag(torch, dev, card)
+    phase_frontend(torch, dev, card)
+    wres = phase_wiring(torch, dev, card)
+    dres = phase_demo(torch, dev, card)
 
     n = launches.get("proj_segments", 0)
     if n == 0:
@@ -999,7 +1521,12 @@ def main():
                      pipeline_shape=dict(B=pl["B"], n=pl["n"], **pick(pl)),
                      launches_per_pipeline_replay=pres["launches"][name],
                      launches_per_pipeline_frame=pres[
-                         "launches_per_frame"][name])
+                         "launches_per_frame"][name],
+                     launches_per_bag_replay=bres["launches"][name],
+                     launches_per_bag_frame=bres["launches_per_frame"][name],
+                     launches_frontend_wiring=wres["launches"].get(name, 0),
+                     launches_demo={m: r["launches"].get(name, 0)
+                                    for m, r in dres.items()})
         if key == "solve":
             extra.update(k16=fl["solve"][COV_COLS],
                          vi_k16=vi["solve"][COV_COLS])
@@ -1015,9 +1542,9 @@ def main():
             library_ms=main["library_ms"], device_ms=main["device_ms"],
             shape=dict(B=fl["B"], n=fl["n"]),
             launches_per_vi_solve=vres["launches"][name], **extra,
-            phase="phases 3, 5 and 6 (the f32 step and covariance of the "
-                  "window solves, the f32 step of the pipeline's solves); "
-                  "timed in phase 4"))
+            phase="phases 3, 5, 6 and 7 (the f32 step and covariance of "
+                  "the window solves, the f32 step of the pipeline's and "
+                  "the bag replay's solves); timed in phase 4"))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,13 @@ Ported so far: the flagship batched RTK-VI window solve
 (``parallel.problems_gnss.batched_rtk_solve``, its projection step on the
 hand-written CUDA kernel ``ops/csrc/proj_segments.cu``), the batched VI
 window solve (``parallel.batched_vi_solve``), the batched f32 Cholesky
-kernels of every f32 step (``ops/pallas_chol_lanes.py``), and the
+kernels of every f32 step (``ops/pallas_chol_lanes.py``), the
 estimator pipeline (``pipeline.Estimator``, driven by ``pipeline.replay``
-over ``sim.simulate``'s sequences).
+over ``sim.simulate``'s sequences), its offline entry points (rosbag
+replay ``io.reference_bag.replay_bag`` over the C++ reader in ``native/``,
+the bag writer, the result CSV, and the demo ``examples/run_sim_demo.py``)
+and the image frontend (``models.cameras``, ``frontend.tracker``,
+``frontend.tracker_frontend``).
 """
 
 from .device import full_precision, resolve_device  # noqa: F401
