@@ -10,10 +10,13 @@ Phases (any failure exits non-zero and prints no result line):
      card: f64 and f32, Cauchy a in {0, 1}, want_ext in {True, False},
      random ids with ragged nobs and near-plane landmarks, and the flagship
      shape, where 100 calls must also be bitwise equal, with the frames
-     no row observes exactly zero; time kernel (with
-     the solve's observation plan and without), plan build and plain
-     version per call at the flagship shape, and the device time against
-     the largest landmark tile (information);
+     no row observes exactly zero; the same checks on every shard the
+     sharded solves of phase 10 give the kernel (phase 3's problem at fp=2,
+     the dry run's problem as it is laid out on the visible cards), each
+     with its own plan, where the landmarks without a row must be zero
+     too; time kernel (with the solve's observation plan and without),
+     plan build and plain version per call at the flagship shape, and the
+     device time against the largest landmark tile (information);
   3. drive the main path once — the flagship batched RTK-VI window solve
      at full width (nf=11, nl=352, nobs=2816, cap=11, ns=14, nb=16, B=32,
      f32, 8 dogleg iterations) through ``batched_rtk_solve`` — with the
@@ -68,7 +71,27 @@ Phases (any failure exits non-zero and prints no result line):
      tests/test_tracker_frontend.py's configuration and bounds;
   9. the demo's ``main`` on the card in each of its five modes: initialized,
      finite positions, one CSV row per IMU sample;
-  10. print the ``kernels`` JSON line, then the card line, then the final
+  10. the sharded flagship solve at full width (phase 3's problem) through
+     the multihost layer, counts zeroed and read around each solve (the
+     projection kernel and both Cholesky kernels must have run, on every
+     rank):
+     a. at world size 1 over NCCL, joined as torchrun would
+     (``initialize_from_env``, ``global_mesh(fp=1)``,
+     ``distribute_local_rtk_problems``, ``multihost_rtk_solve``): the
+     bench's gate, the result held to phase 3's within phase 3's repeat
+     spread, updates/s beside phase 3's;
+     b. two processes on the one card over gloo, dp=1 x fp=2 (1408 rows
+     and 5 chains each; NCCL refuses two ranks on one device, and gloo
+     reduces through host memory): the gate, the gathered result held to
+     10a's within phase 3's error against the truth, updates/s; then the
+     same problem in f64 after one dogleg iteration and after eight, each
+     held to the single-process f64 solve at the JAX package's tolerances
+     for its sharded solve (the check that sees a wrong reduction);
+     c. in the same two processes, the VI solve at fp=2 (phase 5's
+     windows): each window held to phase 5's CPU f32 solve of it;
+     d. ``dryrun_multichip`` on every visible card;
+     any rank's failure or hang (``multihost.TIMEOUT_S``) fails the script;
+  11. print the ``kernels`` JSON line, then the card line, then the final
      ``{"ok": true, ...}`` line.
 
 It imports nothing of the JAX package.
@@ -152,6 +175,13 @@ WIRE_H, WIRE_W, WIRE_F = 240, 320, 160.0
 # phase 9: the demo's five modes, a few seconds each
 DEMO_MODES = ("rtk", "rtd", "spp", "spp_cp", "vi")
 DEMO_DURATION = 4.0
+# phase 10b in f64: the dogleg iterations of the two solves held to the
+# single-process f64 solve (the first step alone, where a wrong sum of the
+# shards' blocks moves the step, and the whole solve), and the tolerances,
+# the JAX package's own for its sharded solve (tests/test_parallel_rtk.py)
+F64_ITERS = (1, 8)
+F64_ATOL = 1e-8
+F64_COST_RTOL, F64_COST_ATOL = 1e-6, 1e-12
 
 
 def _fail(msg):
@@ -401,6 +431,140 @@ def phase_kernel_checks(torch, dev, card):
     return res
 
 
+def _check_proj_shards(torch, dev, pr, shape, n_dp, n_fp, label):
+    """The projection kernel on every dp x fp shard of the problem ``pr``,
+    cut as the sharded solve's ranks cut it (windows over dp, observation
+    rows over fp) and with each shard's own plan, against its plain
+    version (``_compare``); REPEATS calls per shard bitwise equal, each
+    into NaN-filled memory, and the blocks of every frame and landmark
+    that no live row of the shard observes exactly zero.  Returns the
+    largest error and the most frames / landmarks without a row on one
+    shard."""
+    from rtk_visual_inertial_navigation_tpu_torch.core.state import \
+        TangentLayout
+    from rtk_visual_inertial_navigation_tpu_torch.factors.visual import \
+        PROJ_SQRT_INFO
+    from rtk_visual_inertial_navigation_tpu_torch.ops.pallas_proj import (
+        proj_plan, proj_segments_pallas, proj_segments_plain)
+    from rtk_visual_inertial_navigation_tpu_torch.parallel.mesh import _part
+
+    nf, nl = shape["nf"], shape["nl"]
+    lay = TangentLayout(nf=nf, nl=nl, nb=shape["nb"], nc=2)
+    dtype = pr.state0.p.dtype
+    worst, most = 0.0, [0, 0]
+    for d in range(n_dp):
+        wins = lambda x: _part(x, 0, n_dp, d)
+        w = pr.state0._replace(**{k: wins(getattr(pr.state0, k)) for k in (
+            "p", "q", "tic", "qic", "landmarks")})
+        for i in range(n_fp):
+            f, l, xy, valid = (_part(wins(x), 1, n_fp, i).contiguous()
+                               for x in (pr.f_ids, pr.l_ids, pr.obs_xy,
+                                         pr.obs_valid))
+            cam = torch.zeros_like(f)
+            pbg = torch.zeros(3, dtype=dtype, device=dev)
+            args = (w.p, w.q, w.tic, w.qic, w.landmarks, pbg, f, cam, l, xy,
+                    valid)
+            plan = proj_plan(lay, f, cam, l, valid)
+            kern = lambda: proj_segments_pallas(
+                lay, *args, PROJ_SQRT_INFO, want_ext=False, plan=plan)
+            S1, c1 = kern()
+            S0, c0 = proj_segments_plain(lay, *args, PROJ_SQRT_INFO)
+            torch.cuda.synchronize()
+            where = f"{label} {dtype} dp {d} fp {i}"
+            worst = max(worst, _compare(S1, c1, S0, c0, dtype,
+                                        ("PP", "LL", "PL", "GP", "GL"),
+                                        where))
+            count = lambda ids, n: torch.zeros(
+                (ids.shape[0], n), dtype=torch.int64, device=dev
+            ).scatter_add_(1, ids.long(), valid.long())
+            no_f, no_l = count(f, nf) == 0, count(l, nl) == 0
+            most = [max(most[0], int(no_f.sum())),
+                    max(most[1], int(no_l.sum()))]
+            for _ in range(REPEATS):
+                torch.full((1 << 24,), float("nan"), dtype=dtype, device=dev)
+                S2, c2 = kern()
+                if not (torch.equal(c1, c2)
+                        and all(torch.equal(S1[k], S2[k]) for k in S1)):
+                    _fail(f"{where}: two kernel calls differ")
+                if (bool(S2["PP"][no_f].any()) or bool(S2["GP"][no_f].any())
+                        or bool(S2["PL"][no_f].any())
+                        or bool(S2["LL"][no_l].any())
+                        or bool(S2["GL"][no_l].any())
+                        or bool(S2["PL"].transpose(1, 2)[no_l].any())):
+                    _fail(f"{where}: a frame or landmark without rows is "
+                          f"not zero")
+    return worst, most
+
+
+def phase_shard_kernel_checks(torch, dev):
+    """The projection kernel at the shapes the sharded solves of phase 10
+    give it: phase 3's problem cut for 10b (dp=1 x fp=2, 1408 rows a
+    shard) and the dry run's problem as 10d lays it out on the visible
+    cards, each in f32 and f64."""
+    from rtk_visual_inertial_navigation_tpu_torch.parallel.dryrun import (
+        RTK_SEED, RTK_SHAPE, mesh_shape)
+    from rtk_visual_inertial_navigation_tpu_torch.parallel.problems_gnss \
+        import make_synthetic_rtk_windows
+
+    n_dp, n_fp = mesh_shape(torch.cuda.device_count())
+    t0 = time.time()
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        pr = make_synthetic_rtk_windows(0, BATCH, dtype=dtype, device=dev,
+                                        **FLAGSHIP)
+        out[f"10b {dtype}"] = _check_proj_shards(torch, dev, pr, FLAGSHIP,
+                                                 1, 2, "10b shard")
+        pr = make_synthetic_rtk_windows(RTK_SEED, 2 * n_dp, dtype=dtype,
+                                        device=dev, **RTK_SHAPE)
+        out[f"10d {dtype}"] = _check_proj_shards(torch, dev, pr, RTK_SHAPE,
+                                                 n_dp, n_fp, "10d shard")
+    print(f"phase 2: proj_segments kernel matches its plain version on "
+          f"every shard of phase 10's sharded solves (10b: phase 3's "
+          f"problem at dp=1 x fp=2; 10d: the dry run's at dp={n_dp} x "
+          f"fp={n_fp}), {REPEATS} calls per shard bitwise equal and frames "
+          f"and landmarks without rows zero; max abs err and the most "
+          f"[frames, landmarks] without a row on one shard, summed over its "
+          f"windows: {json.dumps(out)}; {time.time() - t0:.1f} s",
+          flush=True)
+    return out
+
+
+def _flagship_gate(torch, probs, out, launches, label):
+    """The bench's hard gate (bench.py:169-193) on a flagship solve's
+    output, plus its shapes and the kernels the solve must have launched;
+    fails the script, else returns the gate's numbers."""
+    F = FLAGSHIP
+    win, _, _, nacc, X = out
+    perr = (win.p - probs.truth.p).norm(dim=-1)
+    pberr = (win.phase_bias - probs.truth.phase_bias).abs()[:, :F["ns"]]
+    nacc_min = int(nacc.min().item())
+    cov_ok = bool(torch.isfinite(X).all().item())
+    from rtk_visual_inertial_navigation_tpu_torch.core.state import \
+        TangentLayout
+    dim = TangentLayout(nf=F["nf"], nl=F["nl"], nb=F["nb"], nc=2).dim
+    shape_ok = (tuple(win.p.shape) == (BATCH, F["nf"], 3)
+                and tuple(X.shape) == (BATCH, dim, F["nb"]))
+    gate = dict(nacc_min=nacc_min, max_pos_err_m=perr.max().item(),
+                max_amb_err_cyc=pberr.max().item(), cov_finite=cov_ok)
+    fails = []
+    if nacc_min == 0:
+        fails.append("a window accepted no step")
+    if gate["max_pos_err_m"] > 0.02:
+        fails.append("max position error > 0.02 m")
+    if gate["max_amb_err_cyc"] > 0.1:
+        fails.append("max ambiguity error > 0.1 cycle")
+    if not cov_ok:
+        fails.append("covariance not finite")
+    if not shape_ok:
+        fails.append("unexpected output shapes")
+    for name in ("proj_segments",) + CHOL_KERNELS:
+        if not launches.get(name, 0):
+            fails.append(f"the solve never launched the {name} kernel")
+    if fails:
+        _fail(f"{label} gate: " + "; ".join(fails))
+    return gate
+
+
 def phase_flagship(torch, dev, card):
     from rtk_visual_inertial_navigation_tpu_torch.core.state import \
         TangentLayout
@@ -428,33 +592,11 @@ def phase_flagship(torch, dev, card):
     t_first = time.time() - t0
     launches = dict(LAUNCHES)
 
-    perr = (win.p - probs.truth.p).norm(dim=-1)
-    pberr = (win.phase_bias - probs.truth.phase_bias).abs()[:, :F["ns"]]
-    nacc_min = int(nacc.min().item())
-    cov_ok = bool(torch.isfinite(X).all().item())
-    shape_ok = (tuple(win.p.shape) == (BATCH, F["nf"], 3)
-                and tuple(X.shape) == (BATCH, lay.dim, F["nb"]))
-    gate = dict(nacc_min=nacc_min, max_pos_err_m=perr.max().item(),
-                max_amb_err_cyc=pberr.max().item(), cov_finite=cov_ok)
+    out = (win, hid, cost, nacc, X)
+    gate = _flagship_gate(torch, probs, out, launches, "flagship")
     print(f"phase 3: flagship solve B={BATCH} f32: {json.dumps(gate)}; "
           f"first call {t_first:.2f} s, synthesis {t_gen:.2f} s; kernel "
           f"launches in this solve {json.dumps(launches)}", flush=True)
-    fails = []
-    if nacc_min == 0:
-        fails.append("a window accepted no step")
-    if gate["max_pos_err_m"] > 0.02:
-        fails.append("max position error > 0.02 m")
-    if gate["max_amb_err_cyc"] > 0.1:
-        fails.append("max ambiguity error > 0.1 cycle")
-    if not cov_ok:
-        fails.append("covariance not finite")
-    if not shape_ok:
-        fails.append("unexpected output shapes")
-    for name in ("proj_segments",) + CHOL_KERNELS:
-        if not launches.get(name, 0):
-            fails.append(f"the solve never launched the {name} kernel")
-    if fails:
-        _fail("flagship gate: " + "; ".join(fails))
 
     reps = 3
     t0 = time.time()
@@ -475,7 +617,8 @@ def phase_flagship(torch, dev, card):
     print(f"phase 3: {ups:.3f} flagship updates/s ({reps} timed solves of "
           f"B={BATCH}, {dt / reps * 1e3:.1f} ms per solve) on {card}",
           flush=True)
-    return launches
+    return dict(launches=launches, probs=probs, out=out, gate=gate,
+                repeat_spread_m=diff, updates_per_s=ups)
 
 
 def phase_small_reference(torch, dev):
@@ -800,7 +943,8 @@ def phase_vi(torch, dev, card):
                   f"{err:.3e}")
     print("phase 5: small f64 VI solve on cuda matches the cpu solve "
           "(atol 1e-8)", flush=True)
-    return dict(gate, updates_per_s=ups, latency_ms=lat_ms)
+    return dict(gate, updates_per_s=ups, latency_ms=lat_ms,
+                cpu_window_err_m=worst_cpu.numpy())
 
 
 def _pipeline_cfg(torch, sim, f32):
@@ -1449,6 +1593,348 @@ def phase_demo(torch, dev, card):
     return res
 
 
+def _free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def phase_sharded_one(torch, dev, card, flag):
+    """10a: the multihost layer at world size 1 (NCCL), torchrun's way of
+    joining, on phase 3's problem."""
+    import torch.distributed as dist
+
+    from rtk_visual_inertial_navigation_tpu_torch.core.state import \
+        TangentLayout
+    from rtk_visual_inertial_navigation_tpu_torch.ops.launches import \
+        LAUNCHES
+    from rtk_visual_inertial_navigation_tpu_torch.parallel import (
+        distribute_local_rtk_problems, global_mesh, initialize_from_env,
+        multihost_rtk_solve)
+    from rtk_visual_inertial_navigation_tpu_torch.solver.gauss_newton \
+        import DoglegConfig
+
+    F = FLAGSHIP
+    lay = TangentLayout(nf=F["nf"], nl=F["nl"], nb=F["nb"], nc=2)
+    cfg = DoglegConfig(max_iters=8)
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    os.environ.update(env)
+    try:
+        if not initialize_from_env():
+            _fail("phase 10a: initialize_from_env did not join a group")
+        backend = dist.get_backend()
+        mesh = global_mesh(fp=1)
+        probs = distribute_local_rtk_problems(mesh, flag["probs"])
+        LAUNCHES.clear()
+        t0 = time.time()
+        out = multihost_rtk_solve(mesh, probs, lay, cfg, F["cap"])
+        torch.cuda.synchronize()
+        t_first = time.time() - t0
+        launches = dict(LAUNCHES)
+        gate = _flagship_gate(torch, flag["probs"], out, launches,
+                              "phase 10a")
+        ref = flag["out"]
+        diff = {k: (a - b).abs().max().item() for k, a, b in (
+            ("p", out[0].p, ref[0].p),
+            ("phase_bias", out[0].phase_bias, ref[0].phase_bias),
+            ("X", out[4], ref[4]))}
+        # at world size 1 the all-reduce is a copy and the decisions are
+        # the solver's own: the result is phase 3's, within phase 3's own
+        # repeat spread (0 so far: bitwise)
+        tol = flag["repeat_spread_m"]
+        print(f"phase 10a: multihost_rtk_solve at world size 1 ({backend}) "
+              f"B={BATCH} f32: {json.dumps(gate)}; first call "
+              f"{t_first:.2f} s; launches {json.dumps(launches)}; max |diff| "
+              f"against phase 3 {json.dumps(diff)} (tolerance {tol:.3e}, "
+              f"phase 3's repeat spread)", flush=True)
+        if not max(diff.values()) <= tol:
+            _fail(f"phase 10a: the world-size-1 solve differs from phase 3 "
+                  f"by more than {tol:.3e}: {diff}")
+        reps = 3
+        t0 = time.time()
+        for _ in range(reps):
+            multihost_rtk_solve(mesh, probs, lay, cfg, F["cap"])
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k)
+    ups = BATCH * reps / dt
+    print(f"phase 10a: {ups:.3f} flagship updates/s through the collective "
+          f"path at world size 1 ({reps} solves, "
+          f"{dt / reps * 1e3:.1f} ms per solve; phase 3: "
+          f"{flag['updates_per_s']:.3f}) on {card}", flush=True)
+    return dict(gate, launches=launches, diff=diff, updates_per_s=ups)
+
+
+def _phase10_rank(rank):
+    """10b and 10c in one rank of a gloo group of two on the one card."""
+    import torch
+    from torch.utils._pytree import tree_map
+
+    from rtk_visual_inertial_navigation_tpu_torch.core.state import \
+        TangentLayout
+    from rtk_visual_inertial_navigation_tpu_torch.ops.launches import \
+        LAUNCHES
+    from rtk_visual_inertial_navigation_tpu_torch.parallel import (
+        distribute_local_problems, distribute_local_rtk_problems,
+        gather_rtk_results, gather_vi_results, global_mesh,
+        make_synthetic_rtk_windows, make_synthetic_windows,
+        multihost_rtk_solve, multihost_vi_solve)
+    from rtk_visual_inertial_navigation_tpu_torch.solver.gauss_newton \
+        import DoglegConfig
+    from rtk_visual_inertial_navigation_tpu_torch import full_precision
+
+    full_precision()
+    mesh = global_mesh(fp=2)
+    res = dict(rank=rank)
+
+    # 10b: phase 3's problem, rows and chains split over fp = 2
+    F = FLAGSHIP
+    lay = TangentLayout(nf=F["nf"], nl=F["nl"], nb=F["nb"], nc=2)
+    cfg = DoglegConfig(max_iters=8)
+    probs = make_synthetic_rtk_windows(0, BATCH, dtype=torch.float32,
+                                       device="cuda", **F)
+    mine = distribute_local_rtk_problems(mesh, probs)
+    rows = mine.obs_valid.sum(1)
+    frame_rows = torch.zeros((BATCH, F["nf"]), dtype=torch.int64,
+                             device=rows.device).scatter_add_(
+        1, mine.f_ids, mine.obs_valid.long())
+    lm_rows = torch.zeros((BATCH, F["nl"]), dtype=torch.int64,
+                          device=rows.device).scatter_add_(
+        1, mine.l_ids, mine.obs_valid.long())
+    res.update(obs_rows=mine.f_ids.shape[1], chains=mine.st.left.shape[1],
+               frames_without_rows=int((frame_rows == 0).sum()),
+               landmarks_without_rows=int((lm_rows == 0).sum()))
+    LAUNCHES.clear()
+    t0 = time.time()
+    out = multihost_rtk_solve(mesh, mine, lay, cfg, F["cap"])
+    torch.cuda.synchronize()
+    res["rtk_first_s"] = time.time() - t0
+    res["rtk_launches"] = dict(LAUNCHES)
+    win, hid, cost, nacc, X = gather_rtk_results(mesh, out)
+    res["rtk"] = dict(p=win.p, phase_bias=win.phase_bias, nacc=nacc, X=X,
+                      truth_p=probs.truth.p)
+    reps = 2
+    t0 = time.time()
+    for _ in range(reps):
+        multihost_rtk_solve(mesh, mine, lay, cfg, F["cap"])
+    torch.cuda.synchronize()
+    res["rtk_updates_per_s"] = BATCH * reps / (time.time() - t0)
+    del probs, mine, out, win, hid, X
+
+    # 10b in f64, F64_ITERS iterations each, for the parent to hold to the
+    # single-process f64 solve
+    p64 = distribute_local_rtk_problems(mesh, make_synthetic_rtk_windows(
+        0, BATCH, dtype=torch.float64, device="cuda", **F))
+    res["rtk64"] = {}
+    for iters in F64_ITERS:
+        win, hid, cost, nacc, X = gather_rtk_results(
+            mesh, multihost_rtk_solve(mesh, p64, lay,
+                                      DoglegConfig(max_iters=iters),
+                                      F["cap"]))
+        res["rtk64"][iters] = dict(p=win.p, phase_bias=win.phase_bias,
+                                   hid_p=hid.p, cost=cost, nacc=nacc, X=X)
+    del p64, win, hid, X
+
+    # 10c: phase 5's VI windows, rows split over fp = 2
+    nf, nl = VI["nf"], VI["nl"]
+    vlay = TangentLayout(nf=nf, nl=nl, nb=1, nc=2)
+    vcfg = DoglegConfig(max_iters=8, schur_nl=nl,
+                        reduced_keep=tuple(range(15 * nf)))
+    vprobs = tree_map(lambda x: x.float() if x.is_floating_point() else x,
+                      make_synthetic_windows(0, VI_BATCH,
+                                             dtype=torch.float64,
+                                             device="cuda", **VI))
+    vmine = distribute_local_problems(mesh, vprobs)
+    LAUNCHES.clear()
+    t0 = time.time()
+    vout = multihost_vi_solve(mesh, vmine, vlay, vcfg)
+    torch.cuda.synchronize()
+    res["vi_first_s"] = time.time() - t0
+    res["vi_launches"] = dict(LAUNCHES)
+    state, cost, nacc = gather_vi_results(mesh, vout)
+    res["vi"] = dict(
+        window_err=(state.p - vprobs.truth.p).norm(dim=-1)[:, 1:]
+        .max(dim=1).values, cost=cost, nacc=nacc, obs_rows=vmine.f_ids
+        .shape[1])
+    return res
+
+
+def phase_sharded_gloo(torch, card, flag, ones, vres):
+    """10b and 10c: two ranks on the one card over gloo (dp=1 x fp=2)."""
+    import numpy as np
+
+    from rtk_visual_inertial_navigation_tpu_torch.parallel.multihost \
+        import run_ranks
+
+    t0 = time.time()
+    ranks = run_ranks(_phase10_rank, 2, device="cuda", backend="gloo")
+    t_all = time.time() - t0
+    F = FLAGSHIP
+    probs = flag["probs"]
+    fails = []
+    for r in ranks:
+        for name in ("proj_segments",) + CHOL_KERNELS:
+            if not r["rtk_launches"].get(name, 0):
+                fails.append(f"rank {r['rank']}: the flagship solve never "
+                             f"launched the {name} kernel")
+        for name in CHOL_KERNELS:
+            if not r["vi_launches"].get(name, 0):
+                fails.append(f"rank {r['rank']}: the VI solve never "
+                             f"launched the {name} kernel")
+    if fails:
+        _fail("phase 10b/c: " + "; ".join(fails))
+
+    # 10b: the gathered flagship result, on rank 0 (every rank holds it)
+    g = ranks[0]["rtk"]
+    T = lambda a: torch.from_numpy(a).to(probs.truth.p.device)
+    if not torch.equal(T(g["truth_p"]), probs.truth.p):
+        _fail("phase 10b: the ranks' problem is not phase 3's")
+    win = probs.truth._replace(p=T(g["p"]), phase_bias=T(g["phase_bias"]))
+    out = (win, None, None, T(g["nacc"]), T(g["X"]))
+    gate = _flagship_gate(torch, probs, out, ranks[0]["rtk_launches"],
+                          "phase 10b")
+    ref = flag["out"]
+    diff = dict(p=(win.p - ref[0].p).abs().max().item(),
+                phase_bias=(win.phase_bias - ref[0].phase_bias).abs().max()
+                .item(),
+                X_rel=((out[4] - ref[4]).abs().max()
+                       / ref[4].abs().max()).item())
+    # a gate, not the check of the reduction: the observations are
+    # noiseless, so a wrong sum of the shards' blocks would still converge
+    # near the truth; the f64 solves below hold the reduction.  Here the
+    # same f32 solve with its sums in another order (per fp shard, then
+    # across the two) lands within phase 3's own error against the truth
+    # (information only for X)
+    tol = dict(p=flag["gate"]["max_pos_err_m"],
+               phase_bias=flag["gate"]["max_amb_err_cyc"])
+    shards = {k: [r[k] for r in ranks] for k in (
+        "obs_rows", "chains", "frames_without_rows",
+        "landmarks_without_rows")}
+    ups = ranks[0]["rtk_updates_per_s"]
+    print(f"phase 10b: multihost_rtk_solve dp=1 x fp=2, two processes on "
+          f"one card over gloo (collectives through host memory) B={BATCH} "
+          f"f32: {json.dumps(gate)}; shards {json.dumps(shards)}; launches "
+          f"per rank {json.dumps([r['rtk_launches'] for r in ranks])}; "
+          f"first call {max(r['rtk_first_s'] for r in ranks):.2f} s; max "
+          f"|diff| against 10a {json.dumps(diff)} (tolerance "
+          f"{json.dumps(tol)}, phase 3's error against the truth)",
+          flush=True)
+    for k in tol:
+        if not diff[k] <= tol[k]:
+            _fail(f"phase 10b: {k} differs from 10a by {diff[k]:.3e} > "
+                  f"{tol[k]:.3e}")
+    f64 = _check_f64_shards(torch, probs.truth.p.device, ranks[0]["rtk64"])
+    print(f"phase 10b: f64, dp=1 x fp=2 against the single-process f64 "
+          f"solve of the same problem, by dogleg iterations: "
+          f"{json.dumps(f64)} (tolerance {F64_ATOL:g} m / cycle, X "
+          f"{F64_ATOL:g} of its largest, cost rtol {F64_COST_RTOL:g} atol "
+          f"{F64_COST_ATOL:g})",
+          flush=True)
+    print(f"phase 10b: {ups:.3f} flagship updates/s over gloo through host "
+          f"memory, two processes on one card (10a at world size 1: "
+          f"{ones['updates_per_s']:.3f}; phase 3: "
+          f"{flag['updates_per_s']:.3f}) on {card}", flush=True)
+
+    # 10c: each VI window held to phase 5's CPU f32 solve of it
+    v = ranks[0]["vi"]
+    worst = v["window_err"]
+    vgate = dict(
+        cost_finite=bool(np.isfinite(v["cost"]).all()),
+        nacc_min=int(v["nacc"].min()), max_pos_err_m=float(worst.max()),
+        frac_windows_err_gt_1cm=float((worst > 0.01).mean()),
+        max_window_err_diff_vs_cpu_m=float(
+            np.abs(worst - vres["cpu_window_err_m"]).max()),
+        obs_rows_per_rank=[r["vi"]["obs_rows"] for r in ranks])
+    print(f"phase 10c: multihost_vi_solve dp=1 x fp=2 over gloo, B="
+          f"{VI_BATCH} f32: {json.dumps(vgate)}; launches per rank "
+          f"{json.dumps([r['vi_launches'] for r in ranks])}; first call "
+          f"{max(r['vi_first_s'] for r in ranks):.2f} s; the group's run "
+          f"{t_all:.1f} s on {card}", flush=True)
+    fails = []
+    if not vgate["cost_finite"]:
+        fails.append("a cost is not finite")
+    if vgate["nacc_min"] < 1:
+        fails.append("a window accepted no step")
+    if not vgate["max_window_err_diff_vs_cpu_m"] <= VI_ERR_TOL_M:
+        fails.append(f"a window's error differs from the CPU solve's by > "
+                     f"{VI_ERR_TOL_M} m")
+    if vgate["max_pos_err_m"] > 0.05:
+        fails.append("max frame-1+ position error > 0.05 m")
+    if vgate["frac_windows_err_gt_1cm"] > 1 / 4:
+        fails.append("more than 1/4 of the windows err > 1 cm")
+    if fails:
+        _fail("phase 10c gate: " + "; ".join(fails))
+    return dict(rtk=dict(gate, diff=diff, f64=f64, updates_per_s=ups,
+                         launches=[r["rtk_launches"] for r in ranks]),
+                vi=dict(vgate, launches=[r["vi_launches"] for r in ranks]),
+                shards=shards)
+
+
+def _check_f64_shards(torch, dev, got):
+    """10b's gathered f64 results (``got``: by dogleg iterations) against
+    the single-process f64 solve of the same problem; fails the script
+    past F64_ATOL / F64_COST_RTOL, else returns the differences."""
+    from rtk_visual_inertial_navigation_tpu_torch.core.state import \
+        TangentLayout
+    from rtk_visual_inertial_navigation_tpu_torch.parallel.problems_gnss \
+        import batched_rtk_solve, make_synthetic_rtk_windows
+    from rtk_visual_inertial_navigation_tpu_torch.solver.gauss_newton \
+        import DoglegConfig
+
+    F = FLAGSHIP
+    lay = TangentLayout(nf=F["nf"], nl=F["nl"], nb=F["nb"], nc=2)
+    probs = make_synthetic_rtk_windows(0, BATCH, dtype=torch.float64,
+                                       device=dev, **F)
+    out = {}
+    for iters in F64_ITERS:
+        g = {k: torch.from_numpy(v).to(dev) for k, v in got[iters].items()}
+        win, hid, cost, nacc, X = batched_rtk_solve(
+            probs, lay, DoglegConfig(max_iters=iters), F["cap"], device=dev)
+        d = dict(p=(g["p"] - win.p).abs().max().item(),
+                 phase_bias=(g["phase_bias"] - win.phase_bias).abs().max()
+                 .item(),
+                 hid_p=(g["hid_p"] - hid.p).abs().max().item(),
+                 X_rel=((g["X"] - X).abs().max()
+                        / X.abs().max().clamp_min(1.0)).item(),
+                 cost=(g["cost"] - cost).abs().max().item(),
+                 cost_max=cost.abs().max().item(),
+                 nacc_equal=bool(torch.equal(g["nacc"], nacc)),
+                 max_pos_err_m=(win.p - probs.truth.p).norm(dim=-1).max()
+                 .item())
+        out[iters] = d
+        bad = [k for k in ("p", "phase_bias", "hid_p", "X_rel")
+               if not d[k] <= F64_ATOL]
+        # assert_allclose's rule: a converged noiseless cost is roundoff
+        if not bool(((g["cost"] - cost).abs()
+                     <= F64_COST_ATOL + F64_COST_RTOL * cost.abs()).all()):
+            bad.append("cost")
+        # the first step is accepted or not by a wide margin; once the
+        # noiseless solve has converged, cost decreases are roundoff and
+        # their accept flags coin flips, so later counts may differ
+        if iters == 1 and not d["nacc_equal"]:
+            bad.append("nacc_equal")
+        if bad:
+            _fail(f"phase 10b f64, {iters} iterations: {bad} differ from "
+                  f"the single-process solve: {d}")
+    return out
+
+
+def phase_dryrun(torch, card):
+    from rtk_visual_inertial_navigation_tpu_torch.parallel.dryrun import \
+        dryrun_multichip
+    n = torch.cuda.device_count()
+    t0 = time.time()
+    out = dryrun_multichip(n)
+    print(f"phase 10d: dryrun_multichip({n}) on cuda: {json.dumps(out)} in "
+          f"{time.time() - t0:.1f} s on {card}", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1480,7 +1966,9 @@ def main():
     full_precision()
 
     kres = phase_kernel_checks(torch, dev, card)
-    launches = phase_flagship(torch, dev, card)
+    phase_shard_kernel_checks(torch, dev)
+    flag = phase_flagship(torch, dev, card)
+    launches = flag["launches"]
     phase_small_reference(torch, dev)
     cres = phase_chol(torch, card)
     vres = phase_vi(torch, dev, card)
@@ -1489,6 +1977,11 @@ def main():
     phase_frontend(torch, dev, card)
     wres = phase_wiring(torch, dev, card)
     dres = phase_demo(torch, dev, card)
+    t0 = time.time()
+    ones = phase_sharded_one(torch, dev, card, flag)
+    sres = phase_sharded_gloo(torch, card, flag, ones, vres)
+    phase_dryrun(torch, card)
+    print(f"phase 10: {time.time() - t0:.1f} s in all", flush=True)
 
     n = launches.get("proj_segments", 0)
     if n == 0:
@@ -1507,7 +2000,12 @@ def main():
         device_ms=kres["device_ms"], share_of_bound=kres["share_of_bound"],
         plan_ms=kres["plan_ms"], noplan_ms=kres["noplan_ms"],
         tile_device_ms=kres["tile_device_ms"],
-        phase="phase 3 (flagship solve); timed in phase 2")]
+        launches_sharded_world1=ones["launches"]["proj_segments"],
+        launches_sharded_fp2_per_rank=[
+            r["proj_segments"] for r in sres["rtk"]["launches"]],
+        phase="phase 3 (flagship solve) and phase 10 (the sharded flagship "
+              "solve: 10a at world size 1, 10b per rank of fp=2); timed in "
+              "phase 2")]
     # the Cholesky kernels: numbers at the flagship shape (B=32, n=339;
     # library: cholesky_ex for the factor, cholesky_solve for the solve),
     # the VI shape's and the 16-column solve's beside them
@@ -1526,7 +2024,12 @@ def main():
                      launches_per_bag_frame=bres["launches_per_frame"][name],
                      launches_frontend_wiring=wres["launches"].get(name, 0),
                      launches_demo={m: r["launches"].get(name, 0)
-                                    for m, r in dres.items()})
+                                    for m, r in dres.items()},
+                     launches_sharded_world1=ones["launches"][name],
+                     launches_sharded_fp2_per_rank=[
+                         r[name] for r in sres["rtk"]["launches"]],
+                     launches_sharded_vi_fp2_per_rank=[
+                         r[name] for r in sres["vi"]["launches"]])
         if key == "solve":
             extra.update(k16=fl["solve"][COV_COLS],
                          vi_k16=vi["solve"][COV_COLS])
@@ -1542,9 +2045,10 @@ def main():
             library_ms=main["library_ms"], device_ms=main["device_ms"],
             shape=dict(B=fl["B"], n=fl["n"]),
             launches_per_vi_solve=vres["launches"][name], **extra,
-            phase="phases 3, 5, 6 and 7 (the f32 step and covariance of "
-                  "the window solves, the f32 step of the pipeline's and "
-                  "the bag replay's solves); timed in phase 4"))
+            phase="phases 3, 5, 6, 7 and 10 (the f32 step and covariance "
+                  "of the window solves, the f32 step of the pipeline's and "
+                  "the bag replay's solves, and of the sharded flagship and "
+                  "VI solves); timed in phase 4"))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,13 @@ kernels of every f32 step (``ops/pallas_chol_lanes.py``), the
 estimator pipeline (``pipeline.Estimator``, driven by ``pipeline.replay``
 over ``sim.simulate``'s sequences), its offline entry points (rosbag
 replay ``io.reference_bag.replay_bag`` over the C++ reader in ``native/``,
-the bag writer, the result CSV, and the demo ``examples/run_sim_demo.py``)
-and the image frontend (``models.cameras``, ``frontend.tracker``,
-``frontend.tracker_frontend``).
+the bag writer, the result CSV, and the demo ``examples/run_sim_demo.py``),
+the image frontend (``models.cameras``, ``frontend.tracker``,
+``frontend.tracker_frontend``) and the dp x fp sharded solves on
+``torch.distributed`` (``parallel.sharded_rtk_solve``,
+``parallel.sharded_vi_solve``, ``parallel.multihost``).  Only the JAX
+package's persistent compile cache (``utils/compile_cache.py``) has no
+counterpart.
 """
 
 from .device import full_precision, resolve_device  # noqa: F401

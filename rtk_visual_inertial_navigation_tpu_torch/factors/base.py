@@ -64,3 +64,32 @@ def rowwise_res_jac(res_fn: Callable, tangent_dim: int, rows, lead_ndim: int,
     res, jac = torch.func.vmap(one)(flat)
     return (res.reshape(lead + res.shape[1:]),
             jac.reshape(lead + jac.shape[1:]))
+
+
+def res_jac_of(res_fn: Callable, tangent_dim: int, dtype=torch.float64):
+    """Residual and tangent-Jacobian of ``res_fn(tangent)`` at zero tangent
+    (forward mode: ``torch.func.jacfwd``)."""
+    zero = torch.zeros(tangent_dim, dtype=dtype)
+    return res_fn(zero), torch.func.jacfwd(res_fn)(zero)
+
+
+def manifold_res_jac(res_fn: Callable, tangent_dim: int):
+    """(res, J = d res / d tangent) at tangent = 0 of ``res_fn``, which
+    closes over the state values and applies the retraction itself."""
+    return res_jac_of(res_fn, tangent_dim)
+
+
+def mask_batch(batch: FactorBatch) -> FactorBatch:
+    """Zero the residual and Jacobian rows of invalid factors (indices
+    left as they are: they scatter zeros)."""
+    m = batch.valid.to(batch.res.dtype)
+    return FactorBatch(res=batch.res * m[..., None],
+                       jac=batch.jac * m[..., None, None], gidx=batch.gidx,
+                       valid=batch.valid)
+
+
+def concat_indices(*index_arrays) -> torch.Tensor:
+    """Per-block global index vectors stacked into a factor's column index
+    row."""
+    return torch.cat([torch.as_tensor(a, dtype=torch.int64).reshape(-1)
+                      for a in index_arrays])

@@ -4,6 +4,7 @@ frequency) rows.
   pseudorange     r = w·(Δρ(x) + clk − z')
   carrier phase   r = w·(Δρ(x) + clk − N·λ − z')
   doppler         r = w·(ê·(v − v_sat) + sag_rate + drift − z')
+  fixed integer   r = w·((N_j − N_datum) − n̄)
 
 Large constants are pre-reduced on the host in float64:
 ρ(x) = r0 + Δρ(x_e) + sag_loc(x_e) with x_e = R_e·p, and the measurement
@@ -139,5 +140,51 @@ def doppler_batch(state: WindowState, batch: GnssObsBatch,
         block_indices(lay.sb_idx(batch.frame_ids), 3),
         block_indices(lay.clk_idx(batch.frame_ids, batch.drift_slot), 1),
         block_indices(lay.pose_idx(batch.frame_ids), 3),
+    ], dim=-1)
+    return _masked(res, jac, gidx, batch.valid)
+
+
+def rtk_pseudorange_batch(state: WindowState, batch: GnssObsBatch,
+                          R_e) -> FactorBatch:
+    """Single-differenced against the base: r = w·(Δρ(x) + dtur − z'),
+    z' = P_sd − (r0_rover − r_base) reduced on the host; the pseudorange
+    factor with the clock slot of dtur."""
+    return spp_pseudorange_batch(state, batch, R_e)
+
+
+def rtk_carrier_phase_batch(state: WindowState, batch: GnssObsBatch,
+                            R_e) -> FactorBatch:
+    """Single-differenced phase: r = w·(Δρ(x) − N·λ + dtur − z'); the
+    carrier-phase factor with the clock slot of dtur."""
+    return spp_carrier_phase_batch(state, batch, R_e)
+
+
+class FixedIntegerBatch(NamedTuple):
+    """Fixed ambiguity differences, leading dims (B, rows)."""
+
+    pb_slot: torch.Tensor     # int the ambiguity being fixed
+    datum_slot: torch.Tensor  # int per-(sys, freq) datum ambiguity slot
+    n_fixed: torch.Tensor     # fixed integer (difference to the datum)
+    weight: torch.Tensor      # sqrt-information (1/0.03)
+    valid: torch.Tensor       # bool
+
+
+def _fixed_res(t, row):
+    """tangent = [N_j, N_datum]."""
+    Nj, Nd, n_fixed, w = row
+    return (w * ((Nj + t[0]) - (Nd + t[1]) - n_fixed))[None]
+
+
+def fixed_integer_batch(state: WindowState,
+                        batch: FixedIntegerBatch) -> FactorBatch:
+    """r = w·((N_j − N_datum) − n̄); both are phase-bias slots."""
+    lay = layout_of(state)
+    row = (state.phase_bias.gather(-1, batch.pb_slot),
+           state.phase_bias.gather(-1, batch.datum_slot), batch.n_fixed,
+           batch.weight)
+    res, jac = rowwise_res_jac(_fixed_res, 2, row, batch.pb_slot.dim())
+    gidx = torch.cat([
+        block_indices(lay.pb_idx(batch.pb_slot), 1),
+        block_indices(lay.pb_idx(batch.datum_slot), 1),
     ], dim=-1)
     return _masked(res, jac, gidx, batch.valid)

@@ -34,3 +34,11 @@ def cauchy_correct(res, jac, a: float = 1.0):
     rho = a2 * torch.log1p(s / a2)
     cost_delta = 0.5 * torch.sum(rho - rho1 * s, dim=-1)
     return res * w[..., None], jac * w[..., None, None], cost_delta
+
+
+def cauchy_cost(res, a: float = 1.0):
+    """½Σρ(|rᵢ|²) over the rows of ``res`` (..., rows, R): the true robust
+    cost of uncorrected residuals, per window (...,)."""
+    a2 = a * a
+    s = torch.sum(res * res, dim=-1)
+    return 0.5 * torch.sum(a2 * torch.log1p(s / a2), dim=-1)

@@ -151,3 +151,33 @@ def invdepth_projection_batch(state: WindowState, host_ids, obs_ids,
     m = valid.to(res.dtype)
     return FactorBatch(res * m[..., None], jac * m[..., None, None], gidx,
                        valid)
+
+
+def _invdepth_one_cam_res(t, row, pbg, weight):
+    """Two frames, one camera; tangent = [pose_i6, pose_j6, ext6,
+    invdepth1] — ProjectionTwoFrameOneCamFactor."""
+    p_i, q_i, p_j, q_j, tic, qic, inv_dep, pts_i, pts_j_xy = row
+    qi = lie.quat_boxplus(q_i, t[3:6])
+    qj = lie.quat_boxplus(q_j, t[9:12])
+    te, qe = tic + t[12:15], lie.quat_boxplus(qic, t[15:18])
+    pc = _invdepth_transform(p_i + t[0:3], qi, p_j + t[6:9], qj, te, qe,
+                             te, qe, inv_dep + t[18], pts_i, pbg)
+    return weight * (pc[0:2] / _safe_z(pc[2]) - pts_j_xy)
+
+
+def invdepth_factor_batch(state: WindowState, host_ids, obs_ids, cam_ids,
+                          inv_depths, pts_host, meas_xy, valid, pbg,
+                          weight=PROJ_SQRT_INFO):
+    """Two-frame-one-camera inverse-depth factors (ids (B, n)):
+    ``inv_depths`` (B, n) is the caller's gather of each row's inverse
+    depth, ``pts_host`` (B, n, 3) the host bearing.  Returns (res (B, n,
+    2), jac (B, n, 2, 19)), zero for invalid rows; the last Jacobian column
+    is the inverse depth's, and the caller places the columns."""
+    rows = (take_rows(state.p, host_ids), take_rows(state.q, host_ids),
+            take_rows(state.p, obs_ids), take_rows(state.q, obs_ids),
+            take_rows(state.tic, cam_ids), take_rows(state.qic, cam_ids),
+            inv_depths, pts_host, meas_xy)
+    res, jac = rowwise_res_jac(_invdepth_one_cam_res, 19, rows,
+                               host_ids.dim(), (pbg, weight))
+    m = valid.to(res.dtype)
+    return res * m[..., None], jac * m[..., None, None]

@@ -34,7 +34,7 @@ from ..factors.base import take_rows
 from ..factors.gnss import (GnssObsBatch, doppler_batch,
                             spp_carrier_phase_batch, spp_pseudorange_batch)
 from ..factors.inertial import imu_factor_batch
-from ..factors.visual import PROJ_SQRT_INFO
+from ..factors.visual import PROJ_SQRT_INFO, projection_factor_batch
 from ..geodesy.earth import _ecef_to_geodetic_np
 from ..ops import lie
 from ..ops.pallas_proj import proj_plan, proj_segments_pallas
@@ -44,9 +44,12 @@ from ..solver.chain_factors import (ChainHidden, ChainMid, ChainRows,
                                     ChainStatic, _gnss_row_eval,
                                     chain_contrib, chain_imu_whitening,
                                     chain_retract_aux, empty_chain_mid)
-from ..solver.gauss_newton import DoglegConfig, assemble_gram, dogleg_solve
+from ..solver.gauss_newton import (DoglegConfig, assemble, assemble_gram,
+                                   dogleg_solve)
 from ..solver.marginalization import masked_cov_cols
-from ..solver.structured import blocks_from_segments
+from ..solver.structured import blocks_from_segments, projection_assemble
+from .mesh import (OBS_FIELDS, dp_windows, fp_shard, mesh_device,
+                   min_over, psum)
 from .problems import IMU_NOISE, VIWindowProblem
 
 
@@ -370,13 +373,23 @@ def make_synthetic_rtk_windows(seed: int, batch: int, nf: int = 11,
 # solve path
 # ---------------------------------------------------------------------------
 def _solve_one_rtk(prob: RTKWindowProblem, lay: TangentLayout,
-                   cfg: DoglegConfig, cap: int):
+                   cfg: DoglegConfig, cap: int, fp_group=None,
+                   use_blocks: bool = True):
     """The flagship window solve of every window of the batch ``prob``.
 
-    The Hessian keeps its Schur block structure end to end
-    (solver/block_hessian.py).  The projection rows go through
-    ``proj_segments_pallas``: the CUDA kernel on the GPU, its plain
-    version on the CPU.
+    ``use_blocks=True`` keeps the Hessian in its Schur block structure end
+    to end (solver/block_hessian.py), and the projection rows go through
+    ``proj_segments_pallas``: the CUDA kernel on the GPU, its plain version
+    on the CPU.  ``use_blocks=False`` is the dense (D, D) test oracle of
+    the JAX package: factor batches, ``projection_assemble`` and scatters.
+
+    With ``fp_group``, ``prob`` holds this process's share of the
+    observation rows and of the chains (chains keep their global frame
+    ids): the projection and chain blocks, their gradient and cost are
+    summed over the group in one ``all_reduce``; the window GNSS and IMU
+    rows, the prior, the step, the window retraction and the covariance
+    run on every peer, and each peer retracts its own chains' hidden
+    states.
     """
     dtype, dev = prob.state0.p.dtype, prob.state0.p.device
     B = prob.state0.p.shape[0]
@@ -394,11 +407,12 @@ def _solve_one_rtk(prob: RTKWindowProblem, lay: TangentLayout,
         return g, 0.5 * torch.sum(dx * g, dim=-1)
 
     eye3 = torch.eye(3, dtype=dtype, device=dev)
-    bh_prior = BlockHess(
-        Hll=eye3 * d2[:, :n3].reshape(B, lay.nl, 3)[..., None],
-        Hlr=torch.zeros((B, lay.nl, 3, lay.dim - n3), dtype=dtype,
-                        device=dev),
-        Hrr=torch.diag_embed(d2[:, n3:]))
+    if use_blocks:
+        bh_prior = BlockHess(
+            Hll=eye3 * d2[:, :n3].reshape(B, lay.nl, 3)[..., None],
+            Hlr=torch.zeros((B, lay.nl, 3, lay.dim - n3), dtype=dtype,
+                            device=dev),
+            Hrr=torch.diag_embed(d2[:, n3:]))
     # per-solve constant: IMU whitening of every chain leaf
     imu_W = chain_imu_whitening(prob.st)
     # the kernel skips the extrinsic products unless some window frees an
@@ -408,36 +422,62 @@ def _solve_one_rtk(prob: RTKWindowProblem, lay: TangentLayout,
     # per-solve constant: the observations grouped for the kernel (one
     # camera)
     cam_ids = torch.zeros_like(prob.f_ids)
-    plan = proj_plan(lay, prob.f_ids, cam_ids, prob.l_ids, prob.obs_valid)
+    plan = (proj_plan(lay, prob.f_ids, cam_ids, prob.l_ids, prob.obs_valid)
+            if use_blocks else None)
+    bidx = torch.arange(B, device=dev)
 
     def eval_fn(comp):
         win, hid = comp
-        S, pcost = proj_segments_pallas(
-            lay, win.p, win.q, win.tic, win.qic, win.landmarks, pbg,
-            prob.f_ids, cam_ids, prob.l_ids, prob.obs_xy, prob.obs_valid,
-            PROJ_SQRT_INFO, want_ext=want_ext, plan=plan)
-        bh, g, cost = blocks_from_segments(lay, S, pcost)
+        if use_blocks:
+            S, pcost = proj_segments_pallas(
+                lay, win.p, win.q, win.tic, win.qic, win.landmarks, pbg,
+                prob.f_ids, cam_ids, prob.l_ids, prob.obs_xy,
+                prob.obs_valid, PROJ_SQRT_INFO, want_ext=want_ext,
+                plan=plan)
+            bh, g, cost = blocks_from_segments(lay, S, pcost)
+        else:
+            b_proj = projection_factor_batch(
+                win, prob.f_ids, cam_ids, prob.l_ids, prob.obs_xy,
+                prob.obs_valid, pbg)
+            H, g, cost = projection_assemble(
+                lay, prob.f_ids, cam_ids, prob.l_ids, b_proj.res,
+                b_proj.jac)
         # chains touch frames/clk/pb only — entirely inside the reduced
         # block; the linearization aux is threaded to the retraction
-        Hb, gb, _, ccost, aux = chain_contrib(
+        Hb, gb, gidx, ccost, aux = chain_contrib(
             win, hid, prob.st, lay, R_e, pbg, g_world, cap, want_aux=True,
             imu_W=imu_W)
-        bh, g = chain_blocks_into(bh, g, Hb, gb, prob.st.left,
-                                  prob.st.right, lay)
+        if use_blocks:
+            bh, g = chain_blocks_into(bh, g, Hb, gb, prob.st.left,
+                                      prob.st.right, lay)
+        else:
+            H = H.index_put((bidx[:, None, None, None], gidx[..., :, None],
+                             gidx[..., None, :]), Hb, accumulate=True)
+            g = g.index_put((bidx[:, None, None], gidx), gb,
+                            accumulate=True)
+        cost = cost + ccost
+        if fp_group is not None:
+            # this peer's projection rows and chains, summed over the fp
+            # group in place: one collective per evaluation
+            psum((*bh, g, cost) if use_blocks else (H, g, cost), fp_group)
         batches = [
             imu_factor_batch(win, prob.pre, pbg, g_world, prob.pre_valid),
             spp_pseudorange_batch(win, prob.b_pr, R_e),
             spp_carrier_phase_batch(win, prob.b_cp, R_e),
             doppler_batch(win, prob.b_dopp, R_e),
         ]
+        gp, cp = prior_gc(win)
+        if not use_blocks:
+            Hg, gg, cg = assemble(batches, lay.dim)
+            return (H + Hg + torch.diag_embed(d2), g + gg + gp,
+                    cost + cg + cp, aux)
         # window-frame GNSS + IMU rows touch only the reduced block: Gram
         # assembly into (Dr, Dr) with shifted indices
         shifted = [b._replace(gidx=b.gidx - n3) for b in batches]
         Hg, gg, cg = assemble_gram(shifted, lay.dim - n3)
-        gp, cp = prior_gc(win)
         bh = bh._replace(Hrr=bh.Hrr + Hg).add(bh_prior)
         g = g + gp + torch.nn.functional.pad(gg, (n3, 0))
-        return bh, g, cost + ccost + cg + cp, aux
+        return bh, g, cost + cg + cp, aux
 
     def retract_fn(comp, dx, aux):
         win, hid = comp
@@ -445,7 +485,9 @@ def _solve_one_rtk(prob: RTKWindowProblem, lay: TangentLayout,
         return (retract_window(win, dx), h2)
 
     res = dogleg_solve(eval_fn, retract_fn, (prob.state0, prob.hid0),
-                       prob.free_mask, cfg, has_aux=True)
+                       prob.free_mask, cfg, has_aux=True,
+                       reduce=None if fp_group is None
+                       else min_over(fp_group))
     # ambiguity tail covariance for LAMBDA, from the final Hessian
     X = masked_cov_cols(res.H, prob.free_mask, prob.cov_cols)
     win, hid = res.state
@@ -453,11 +495,36 @@ def _solve_one_rtk(prob: RTKWindowProblem, lay: TangentLayout,
 
 
 def batched_rtk_solve(probs: RTKWindowProblem, lay: TangentLayout,
-                      cfg: DoglegConfig, cap: int, device=None):
+                      cfg: DoglegConfig, cap: int, device=None,
+                      use_blocks: bool = True):
     """Solve a batch of flagship windows on ``device`` (default ``cuda``;
     pass ``device="cpu"`` for the CPU).  Returns (win, hid, cost (B,),
-    n_accepted (B,), X (B, D, nb))."""
+    n_accepted (B,), X (B, D, nb)).  ``use_blocks=False``: the dense test
+    oracle (see ``_solve_one_rtk``)."""
     dev = resolve_device(device)
     full_precision()
     probs = tree_map(lambda x: x.to(dev), probs)
-    return _solve_one_rtk(probs, lay, cfg, cap)
+    return _solve_one_rtk(probs, lay, cfg, cap, use_blocks=use_blocks)
+
+
+# the fields of a flagship problem split over the fp peers: observation
+# rows and chains (static data and hidden initial guess)
+RTK_FP_FIELDS = OBS_FIELDS + ("st", "hid0")
+
+
+def sharded_rtk_solve(mesh, probs: RTKWindowProblem, lay: TangentLayout,
+                      cfg: DoglegConfig, cap: int, device=None):
+    """dp x fp sharded flagship solve of the global batch ``probs``, which
+    every process of ``mesh`` passes whole: windows over dp; within each
+    window the observation rows, the chains and their hidden states over
+    fp, with one ``all_reduce`` of the Schur blocks per evaluation.
+
+    Raises unless the batch divides by dp, and the rows and nf - 1 by fp.
+    Returns this process's share: (win, hid, cost, n_accepted, X) of its
+    windows, ``hid`` of its chains only; ``multihost.gather_rtk_results``
+    collects the batch."""
+    full_precision()
+    local = fp_shard(mesh, dp_windows(mesh, probs), RTK_FP_FIELDS,
+                     mesh_device(mesh, device))
+    return _solve_one_rtk(local, lay, cfg, cap,
+                          fp_group=mesh.get_group("fp"))

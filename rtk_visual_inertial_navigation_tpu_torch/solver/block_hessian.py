@@ -48,6 +48,22 @@ class BlockHess(NamedTuple):
     def dim(self):
         return self.n3 + self.Dr
 
+    @staticmethod
+    def from_dense(H: torch.Tensor, nl: int) -> "BlockHess":
+        """Split a dense (..., D, D) Hessian whose landmark block is
+        3x3-block-diagonal.  Landmark-landmark coupling off the diagonal
+        blocks, if any, is dropped: callers guarantee there is none (a
+        projection row touches one landmark)."""
+        n3 = 3 * nl
+        lead = H.shape[:-2]
+        # diagonal 3x3 blocks: (..., nl, 3, nl, 3) -> (..., 3, 3, nl) ->
+        # (..., nl, 3, 3); indexing H[..., idx, :, idx, :] would move the
+        # landmark dim in front of the batch dims
+        Hll = torch.diagonal(H[..., :n3, :n3].reshape(lead + (nl, 3, nl, 3)),
+                             dim1=-4, dim2=-2).movedim(-1, -3)
+        return BlockHess(Hll, H[..., :n3, n3:].reshape(lead + (nl, 3, -1)),
+                         H[..., n3:, n3:])
+
     def diagonal(self) -> torch.Tensor:
         dl = torch.diagonal(self.Hll, dim1=-2, dim2=-1).flatten(-2)
         return torch.cat(
@@ -190,3 +206,32 @@ def chain_blocks_into(bh: BlockHess, g, Hb, gb, left, right, lay):
     g[..., lay.frame_off:lay.frame_off + nfr] += gf
     g[..., lay.pb_off:lay.pb_off + dn] += gb[..., 2 * d:].sum(-2)
     return bh._replace(Hrr=Hrr), g
+
+
+def prior_block_contrib(prior, nl: int, boxminus):
+    """Block-structured evaluation of a linear prior (``MargPrior``).
+
+    H = JᵀJ is constant within a solve: it is formed once (dense, then
+    split; the landmark block of every prior here is block-diagonal or
+    empty), and g and the cost move with the state by block matvecs.
+    Returns (bh0, contrib) with contrib(state) -> (g, cost)."""
+    if prior.H0 is not None:
+        H0, g0, c0 = prior.H0, prior.g0, prior.c0
+    else:
+        Jm = prior.J * prior.valid_rows[..., None]
+        rm = prior.r0 * prior.valid_rows
+        Jt = Jm.transpose(-1, -2)
+        H0, g0 = Jt @ Jm, (Jt @ rm[..., None])[..., 0]
+        c0 = torch.sum(rm * rm, dim=-1)
+    bh0 = BlockHess.from_dense(H0, nl)
+    x0 = prior.x0
+
+    def contrib(state):
+        dx = boxminus(state, x0)
+        Hdx = bh0.matvec(dx)
+        g = g0 + Hdx
+        cost = 0.5 * (c0 + 2.0 * torch.sum(g0 * dx, dim=-1)
+                      + torch.sum(dx * Hdx, dim=-1))
+        return g, cost
+
+    return bh0, contrib

@@ -447,3 +447,15 @@ def chain_retract_aux(hids: ChainHidden, sts: ChainStatic, dx, aux,
         bg=hids.bg + interior[..., 12:15],
         clk=hids.clk + dclk,
     )
+
+
+def chain_retract(win: WindowState, hids: ChainHidden, sts: ChainStatic,
+                  dx, lay, R_e, pbg, g_world, cap: int) -> ChainHidden:
+    """As ``chain_retract_aux``, but rebuilds the linearization at ``win``
+    and ``hids`` (standalone callers and tests; the solves thread the aux
+    of ``chain_contrib`` instead)."""
+    leaves, clk_aux, _ = chain_leaves(win, hids, sts, R_e, pbg, g_world,
+                                      cap, lay.nb)
+    F = scan_chain_tail_prefix(leaves, axis=sts.n_leaves.dim())
+    return chain_retract_aux(hids, sts, dx, ((F, leaves), clk_aux), lay,
+                             cap)

@@ -215,15 +215,7 @@ def _gn_step_schur(H, g, nl: int, keep=None, step_dtype: str = "same"):
     dense H's blocks taken as a ``BlockHess``.  ``keep``: see
     ``BlockHess.gn_step``."""
     from .block_hessian import BlockHess   # block_hessian imports this module
-    n3 = 3 * nl
-    lead = H.shape[:-2]
-    # diagonal 3x3 blocks: (..., nl, 3, nl, 3) -> (..., 3, 3, nl) ->
-    # (..., nl, 3, 3); indexing H[..., idx, :, idx, :] would move the
-    # landmark dim in front of the batch dims
-    Hll = torch.diagonal(H[..., :n3, :n3].reshape(lead + (nl, 3, nl, 3)),
-                         dim1=-4, dim2=-2).movedim(-1, -3)
-    Hlr = H[..., :n3, n3:].reshape(lead + (nl, 3, -1))
-    return BlockHess(Hll, Hlr, H[..., n3:, n3:]).gn_step(g, keep, step_dtype)
+    return BlockHess.from_dense(H, nl).gn_step(g, keep, step_dtype)
 
 
 def _norm(x):
@@ -282,7 +274,7 @@ def _select(mask, a, b):
 
 def dogleg_solve(eval_fn: Callable, retract_fn: Callable, state0,
                  free_mask, cfg: DoglegConfig = DoglegConfig(),
-                 has_aux: bool = False):
+                 has_aux: bool = False, reduce: Callable | None = None):
     """Minimize ½|r(x)|² per window with a dogleg trust region.
 
     Args:
@@ -293,6 +285,15 @@ def dogleg_solve(eval_fn: Callable, retract_fn: Callable, state0,
       retract_fn: (state, dx) -> state, or (state, dx, aux) -> state.
       state0: initial state pytree (leading window dims).
       free_mask: (..., D) bool — which tangent entries may move.
+      reduce: None, or, where several processes solve the same windows
+        (the fp peers of a sharded solve), a function that takes an int32
+        tensor of per-window 0/1 flags and returns its elementwise minimum
+        over those peers.  Each iteration's accept, trust-region and
+        convergence flags go through it once, so every peer takes the same
+        decisions (accept, grow or shrink the radius, stop) even where
+        their replicated arithmetic differs in the last bits; their states
+        and radii then differ by that roundoff only.  A peer that left the
+        loop alone would hang its peers' next collective.
 
     Returns SolveResult with the final (H, g) evaluated at the final state.
     """
@@ -318,23 +319,36 @@ def dogleg_solve(eval_fn: Callable, retract_fn: Callable, state0,
         actual = cost - costc
         rho = actual / torch.clamp_min(pred, 1e-300)
         accept = (actual > 0) & (pred > 0)
+        step_norm = _norm(p)
+        grow = accept & (rho > 0.75) & (step_norm > 0.9 * radius)
+        shrink = rho < 0.25
+        if reduce is not None:
+            # one collective: accept, the radius branches, and the
+            # convergence test below for either outcome, each true only
+            # where it is true on every peer
+            flags = reduce(torch.stack([
+                accept, grow, shrink, (actual <= cfg.f_tol * costc)
+                | (pred <= cfg.f_tol * costc), pred <= cfg.f_tol * cost
+            ]).to(torch.int32)).bool()
+            accept, grow, shrink = flags[0], flags[1], flags[2]
 
         state = _select(accept, cand, state)
         aux = _select(accept, auxc, aux)
         H = _select(accept, Hc, H)
         g = _select(accept, gc, g)
         cost = torch.where(accept, costc, cost)
-        step_norm = _norm(p)
         radius = torch.where(
-            accept & (rho > 0.75) & (step_norm > 0.9 * radius),
-            torch.clamp_max(2.0 * radius, cfg.max_radius),
-            torch.where(rho < 0.25,
+            grow, torch.clamp_max(2.0 * radius, cfg.max_radius),
+            torch.where(shrink,
                         torch.clamp_min(0.5 * step_norm, cfg.min_radius),
                         radius))
         # ceres function_tolerance on accepted steps, plus a predicted-
         # decrease exit (the model itself cannot improve the cost)
-        converged = ((accept & (actual <= cfg.f_tol * cost))
-                     | (pred <= cfg.f_tol * cost))
+        if reduce is None:
+            converged = ((accept & (actual <= cfg.f_tol * cost))
+                         | (pred <= cfg.f_tol * cost))
+        else:
+            converged = torch.where(accept, flags[3], flags[4])
         res_c = SolveResult(state, H, g, cost, radius,
                             n_acc + accept.to(torch.int32))
         return res_c, aux, converged

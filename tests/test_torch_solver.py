@@ -3,6 +3,8 @@ stated, CPU, inputs from a numpy seed): block Hessian algebra, Gram
 assembly, SPD solves, chain block placement, and the dogleg loop on a
 dense toy problem."""
 
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -206,3 +208,160 @@ def test_dense_dogleg_and_cov_match_jax(f_tol):
     _close(res.radius, ref.radius)
     np.testing.assert_array_equal(res.n_accepted, np.asarray(ref.n_accepted))
     _close(t_cov, j_cov)
+
+
+def _rosenbrock(x):
+    """Two Rosenbrock valleys per window: residuals (B, 4), Jacobian."""
+    z, o = torch.zeros_like(x[:, 0]), torch.ones_like(x[:, 0])
+    r = torch.stack([10 * (x[:, 1] - x[:, 0] ** 2), 1 - x[:, 0],
+                     10 * (x[:, 3] - x[:, 2] ** 2), 1 - x[:, 2]], -1)
+    J = torch.stack([torch.stack([-20 * x[:, 0], 10 * o, z, z], -1),
+                     torch.stack([-o, z, z, z], -1),
+                     torch.stack([z, z, -20 * x[:, 2], 10 * o], -1),
+                     torch.stack([z, z, -o, z], -1)], -2)
+    return r, J
+
+
+def test_dogleg_reduce_keeps_peers_in_step():
+    """Two peers of an fp group (threads here, the hook a MIN over both)
+    solve the same windows, one with its H off by a relative 1e-3, as
+    replicated arithmetic that differs between peers would leave it.  With
+    the reduce hook they accept, grow or shrink the radius and stop
+    together: equal accepted counts, radii and states apart by the
+    perturbation's effect only (a radius branch taken by one peer alone
+    would set the radii a factor 2 apart)."""
+    nb = 512
+    x0 = T(np.random.default_rng(0).uniform(-2, 2, (nb, 4)))
+    free = torch.ones((nb, 4), dtype=torch.bool)
+    cfg = tgn.DoglegConfig(max_iters=30, initial_radius=0.5, f_tol=1e-12)
+    slots = [None, None]
+    barrier = threading.Barrier(2, timeout=60)
+
+    def min_hook(i):
+        def reduce(flags):
+            slots[i] = flags.clone()
+            barrier.wait()
+            out = torch.minimum(slots[0], slots[1])
+            barrier.wait()
+            return out
+        return reduce
+
+    out = [None, None]
+
+    def peer(i):
+        def eval_fn(x):
+            r, J = _rosenbrock(x)
+            Jt = J.transpose(-1, -2)
+            return ((Jt @ J) * (1.0 + 1e-3 * i), (Jt @ r[..., None])[..., 0],
+                    0.5 * (r * r).sum(-1))
+        out[i] = tgn.dogleg_solve(eval_fn, lambda x, dx: x + dx, x0, free,
+                                  cfg, reduce=min_hook(i))
+
+    threads = [threading.Thread(target=peer, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    a, b = out
+    assert a is not None and b is not None, "a peer failed"
+    np.testing.assert_array_equal(a.n_accepted, b.n_accepted)
+    assert (a.radius / b.radius).log().abs().max().item() < 0.1
+    np.testing.assert_allclose(a.state, b.state, rtol=0, atol=1e-3)
+
+
+def test_prior_block_contrib_matches_jax():
+    """The block-structured prior: bh0 (split by BlockHess.from_dense), g
+    and the cost at a moved state, against block_hessian.py's; and from a
+    prior that carries its information form."""
+    from rtk_visual_inertial_navigation_tpu.core.state import \
+        WindowState as JWindowState
+    from rtk_visual_inertial_navigation_tpu.core.state import \
+        window_boxminus as j_boxminus
+    from rtk_visual_inertial_navigation_tpu.factors.priors import \
+        MargPrior as JMargPrior
+    from rtk_visual_inertial_navigation_tpu_torch.core.state import (
+        WindowState, window_boxminus)
+    from rtk_visual_inertial_navigation_tpu_torch.factors.priors import \
+        MargPrior
+    rng = np.random.default_rng(6)
+    nf, nl, nb = 3, 4, 2
+    lay = TangentLayout(nf=nf, nl=nl, nb=nb, nc=2)
+    D, R = lay.dim, 12
+    J = rng.normal(size=(B, R, D))
+    # landmark columns: one 3-block per row, so JᵀJ is block-diagonal there
+    for r in range(R):
+        keep = 3 * (r % nl)
+        J[:, r, :3 * nl] = 0.0
+        J[:, r, keep:keep + 3] = rng.normal(size=(B, 3))
+    r0 = rng.normal(size=(B, R))
+    valid = rng.random((B, R)) < 0.8
+    x0 = WindowState.zeros(nf, nl, nb, dtype=torch.float64,
+                           batch_shape=(B,))
+    state = x0._replace(p=T(rng.normal(size=(B, nf, 3))),
+                        landmarks=T(rng.normal(size=(B, nl, 3))),
+                        phase_bias=T(rng.normal(size=(B, nb))))
+    prior = MargPrior(J=T(J), r0=T(r0), x0=x0, valid_rows=T(valid))
+    bh0, contrib = tbh.prior_block_contrib(prior, nl, window_boxminus)
+    g, cost = contrib(state)
+    jx0 = JWindowState.zeros(nf, nl, nb)
+    for b in range(B):
+        jprior = JMargPrior(J=jnp.asarray(J[b]), r0=jnp.asarray(r0[b]),
+                            x0=jx0, valid_rows=jnp.asarray(valid[b]))
+        jbh0, jcontrib = jbh.prior_block_contrib(jprior, nl, j_boxminus)
+        jst = jx0._replace(p=jnp.asarray(state.p[b].numpy()),
+                           landmarks=jnp.asarray(state.landmarks[b].numpy()),
+                           phase_bias=jnp.asarray(
+                               state.phase_bias[b].numpy()))
+        jg, jcost = jcontrib(jst)
+        for k in ("Hll", "Hlr", "Hrr"):
+            _close(getattr(bh0, k)[b], getattr(jbh0, k))
+        _close(g[b], jg)
+        _close(cost[b], jcost)
+    # a prior in information form gives the same contribution
+    Jm = T(J) * T(valid)[..., None]
+    rm = T(r0) * T(valid)
+    informed = prior._replace(H0=Jm.transpose(-1, -2) @ Jm,
+                              g0=(Jm.transpose(-1, -2) @ rm[..., None])[
+                                  ..., 0], c0=(rm * rm).sum(-1))
+    g2, cost2 = tbh.prior_block_contrib(informed, nl, window_boxminus)[1](
+        state)
+    _close(g2, g.numpy())
+    _close(cost2, cost.numpy())
+
+
+def test_dense_rtk_solve_matches_block_path_and_jax():
+    """The dense use_blocks=False flagship solve (JAX's test oracle)
+    against the port's block path and JAX's dense path, at
+    tests/test_parallel_rtk.py's shapes and tolerances."""
+    from test_torch_jax_ref import per_window
+    from test_torch_jax_ref import to_numpy as _np
+
+    from rtk_visual_inertial_navigation_tpu.parallel import \
+        make_synthetic_rtk_windows
+    from rtk_visual_inertial_navigation_tpu.parallel.problems_gnss import \
+        _solve_one_rtk
+    from rtk_visual_inertial_navigation_tpu_torch.parallel.problems_gnss \
+        import batched_rtk_solve, problem_from_numpy
+    nf, nl, nobs, nsamp, cap, ns, nb = 5, 12, 40, 6, 4, 6, 8
+    jp = make_synthetic_rtk_windows(jax.random.PRNGKey(7), B, nf=nf, nl=nl,
+                                    nobs=nobs, nsamp=nsamp, cap=cap, ns=ns,
+                                    nb=nb)
+    jlay = JLayout(nf=nf, nl=nl, nb=nb, nc=2)
+    jcfg = jgn.DoglegConfig(max_iters=4)
+    jwin, _, jcost, _, jX = per_window(lambda p: _solve_one_rtk(
+        p, jlay, jcfg, cap, use_blocks=False), (jp,), B)
+    tp = problem_from_numpy(_np(jp), device="cpu")
+    lay = TangentLayout(nf=nf, nl=nl, nb=nb, nc=2)
+    cfg = tgn.DoglegConfig(max_iters=4)
+    dense = batched_rtk_solve(tp, lay, cfg, cap, device="cpu",
+                              use_blocks=False)
+    block = batched_rtk_solve(tp, lay, cfg, cap, device="cpu")
+    for ref in ((jwin, jcost, jX), (block[0], block[2], block[4])):
+        win, cost, X = dense[0], dense[2], dense[4]
+        np.testing.assert_allclose(cost.numpy(), np.asarray(ref[1]),
+                                   rtol=1e-6, atol=1e-12)
+        np.testing.assert_allclose(win.p.numpy(), np.asarray(ref[0].p),
+                                   atol=1e-8)
+        np.testing.assert_allclose(win.phase_bias.numpy(),
+                                   np.asarray(ref[0].phase_bias), atol=1e-8)
+        np.testing.assert_allclose(X.numpy(), np.asarray(ref[2]), atol=1e-8)
