@@ -43,9 +43,10 @@ Phases (any failure exits non-zero and prints no result line):
      (``bench.py --latency``), and a CUDA vs CPU check on a small f64
      problem;
   6. the estimator pipeline (``bench.py --pipeline``) through the port's
-     ``pipeline.Estimator`` on the card: the bench's 30 s noiseless RTK-VI
-     sequence (cam 2 Hz, GNSS 2 Hz, nf=10, nl=48, nb=32, IMU-GNSS chains at
-     the default caps, LAMBDA fixing), the f32 step, counts zeroed and read
+     ``pipeline.Estimator`` on the card: the bench's noiseless RTK-VI
+     simulation (cam 2 Hz, GNSS 2 Hz, seed 0) for PIPE_DURATION (15 s of
+     the bench's 30 s), nf=10, nl=48, nb=32, IMU-GNSS chains at the
+     default caps, LAMBDA fixing, the f32 step, counts zeroed and read
      around it (the Cholesky kernels must have run); the gate of
      tests/test_pipeline_gnss.py:117-138 (initialized, fixed, the fixed
      double differences equal the simulated integers, the last 10 frames
@@ -91,8 +92,27 @@ Phases (any failure exits non-zero and prints no result line):
      windows): each window held to phase 5's CPU f32 solve of it;
      d. ``dryrun_multichip`` on every visible card;
      any rank's failure or hang (``multihost.TIMEOUT_S``) fails the script;
-  11. print the ``kernels`` JSON line, then the card line, then the final
-     ``{"ok": true, ...}`` line.
+  11. the estimator's other navigation modes on the card, each the
+     configuration of a JAX pipeline test (``pipeline.replay.MODE_CASES``,
+     the cases tests/test_torch_modes.py holds to JAX on the CPU) on a
+     MODE_DURATION sequence: VI-only (the landmark Schur step with
+     ``reduced_keep``), inverse depth (the dense step), stereo with world
+     points and with inverse depth (the second camera's rows), SPP-VI with
+     chains off, SPP-VI with carrier phase, RTD-VI, SPP correction and the
+     magnetometer yaw.  Each replays with the f32 step, counts zeroed just
+     before and read just after: the Cholesky factor and solve kernels must
+     have launched, no f32 system may reach ``torch.linalg.cholesky_ex``,
+     and the JAX test's bounds against the truth must hold, except for
+     SPP and SPP-CP, whose f32 step misses them in the JAX package as in
+     the port (MODE_F32_CPU): those are held frame by frame to the same
+     f32 replay on the host CPU; frames/s, launches per frame and the
+     (B, n) of the factored systems.  Then stereo inverse depth and SPP-CP
+     replay in f64 on the card, and on the host CPU: every frame's
+     position within PIPE_F64_TOL_M, the same frames, ``rtk_fixed`` flags
+     and active ambiguities.  The host CPU's replays run in two spawned
+     processes beside the card's.  The phase prints its seconds;
+  12. print the script's seconds, the ``kernels`` JSON line, then the card
+     line, then the final ``{"ok": true, ...}`` line.
 
 It imports nothing of the JAX package.
 """
@@ -138,10 +158,12 @@ CHOL_KERNELS = ("chol_lanes", "chol_lanes_solve")
 # projection kernel calls at the flagship shape that must be bitwise equal
 REPEATS = 100
 # bench.py --pipeline (bench.py:49-64): the simulated sequence, seed 0,
-# noiseless; 30 s, or 8 s with --smoke
+# noiseless; 30 s, or 8 s with --smoke.  Phase 6 replays 15 s: cut from
+# 30 s when phase 11 came, since the script took 1049.1 s of its 1200 s
+# on a slow host with 30 s (the 30 s replay alone took 196 s there)
 PIPE_SIM = dict(imu_rate=200.0, cam_rate=2.0, gnss_rate=2.0, n_landmarks=60,
                 n_sats=10, seed=0)
-PIPE_DURATION = 30.0
+PIPE_DURATION = 15.0
 PIPE_SMOKE_DURATION = 8.0
 PIPE_WARMUP = 12
 # the f64 replay on the card against the same replay on the host CPU: the
@@ -149,7 +171,7 @@ PIPE_WARMUP = 12
 PIPE_F64_TOL_M = 1e-6
 # phase 7: the pipeline's sequence written as a bz2 rosbag and replayed
 # through replay_bag (main3.cpp's loop) with the f32 step and a ResultWriter;
-# the 8 s --smoke sequence (phase 6 replays the 30 s one), which keeps the
+# the 8 s --smoke sequence (phase 6 replays the longer one), which keeps the
 # whole script near half of its 1200 s limit
 BAG_DURATION = PIPE_SMOKE_DURATION
 # phase 8a: the image frontend at the reference's width (752x480,
@@ -172,9 +194,10 @@ FE_TRUTH_TOL_PX = 0.25
 FE_PROFILE_FRAMES = 3
 # phase 8b: tests/test_tracker_frontend.py:34-63's configuration
 WIRE_H, WIRE_W, WIRE_F = 240, 320, 160.0
-# phase 9: the demo's five modes, a few seconds each
+# phase 9: the demo's five modes, a few seconds each (cut from 4 s when
+# phase 11 came to check the same modes more strictly)
 DEMO_MODES = ("rtk", "rtd", "spp", "spp_cp", "vi")
-DEMO_DURATION = 4.0
+DEMO_DURATION = 2.5
 # phase 10b in f64: the dogleg iterations of the two solves held to the
 # single-process f64 solve (the first step alone, where a wrong sum of the
 # shards' blocks moves the step, and the whole solve), and the tolerances,
@@ -182,6 +205,27 @@ DEMO_DURATION = 4.0
 F64_ITERS = (1, 8)
 F64_ATOL = 1e-8
 F64_COST_RTOL, F64_COST_ATOL = 1e-6, 1e-12
+# phase 11: the navigation modes of tests/test_torch_modes.py
+# (pipeline.replay.MODE_CASES, each the configuration of a JAX pipeline
+# test) on a sequence of this length: cut from the CPU tests' 5 s so that
+# the phase keeps within 300 s of the script's limit (5 s took 323 s)
+MODE_DURATION = 4.0
+# the nine modes replayed with the f32 step (RTK-VI is phase 6's)
+MODE_F32 = ("vi", "vi_invdepth", "stereo", "stereo_invdepth", "spp",
+            "spp_cp", "rtd", "spp_correction", "mag")
+# the two whose device path differs most from phase 6b's RTK path, in f64
+# on the card against the port's CPU replay: stereo inverse depth (the
+# dense step, no landmark Schur, the second camera's rows) and SPP-CP
+# (float ambiguities in the window, no integer fix)
+MODE_F64 = ("stereo_invdepth", "spp_cp")
+# the two modes whose f32 step misses its JAX test's bounds against the
+# truth, in the JAX package as in the port (tests/torch_mode_refs.py CASE
+# OUT --step-dtype float32: the second half's largest error 0.0637 m for
+# SPP, 2.41 m for SPP-CP, against 0.05 m): the card's f32 replay of each
+# is held to the same replay on the host CPU, frame by frame, within
+# phase 5's f32 card-vs-CPU tolerance
+MODE_F32_CPU = ("spp", "spp_cp")
+MODE_F32_TOL_M = VI_ERR_TOL_M
 
 
 def _fail(msg):
@@ -918,7 +962,7 @@ def phase_vi(torch, dev, card):
     one = make_synthetic_windows(0, 1, dtype=torch.float32, device=dev,
                                  **VI)
     batched_vi_solve(one, lay, cfg, device=dev)[1].cpu()
-    reps = 20
+    reps = 8
     t0 = time.time()
     for _ in range(reps):
         batched_vi_solve(one, lay, cfg, device=dev)[1].cpu()
@@ -1593,6 +1637,185 @@ def phase_demo(torch, dev, card):
     return res
 
 
+def _mode_replay(torch, dev, name, sim, f32):
+    """Replay case ``name`` of ``MODE_CASES`` on ``sim`` into an estimator
+    on ``dev``; returns (estimator, per-event ``rtk_fixed`` flags, host
+    stamps after each frame, replay seconds)."""
+    from rtk_visual_inertial_navigation_tpu_torch.config import \
+        EstimatorConfig
+    from rtk_visual_inertial_navigation_tpu_torch.pipeline import Estimator
+    from rtk_visual_inertial_navigation_tpu_torch.pipeline.replay import (
+        mode_config_kwargs, replay_mode)
+    est = Estimator(EstimatorConfig(**mode_config_kwargs(
+        name, sim, solve_step_dtype="float32" if f32 else "same")),
+        device=dev)
+    stamps = _frame_stamps(est)
+    fixed = []
+    t0 = time.time()
+    replay_mode(est, name, sim,
+                on_event=lambda i: fixed.append(bool(est.rtk_fixed)))
+    _sync(torch, dev)
+    return est, fixed, stamps, time.time() - t0
+
+
+def _active_bias_keys(est):
+    """The keys of the active phase-bias slots (none without GNSS)."""
+    if est.gnss is None:
+        return []
+    bias = est.gnss.bias
+    return sorted(k for k, a in zip(bias.key, bias.active) if a)
+
+
+def _replay_summary(est, fixed, seconds):
+    """What phase 11 compares of a replay, picklable."""
+    return dict(t=[t for t, *_ in est.trajectory],
+                p=[p for _, p, _, _ in est.trajectory], fixed=fixed,
+                initialized=bool(est.initialized),
+                keys=_active_bias_keys(est), seconds=seconds)
+
+
+def _cpu_mode_replay(root, name, f32):
+    """Case ``name``'s replay on the host CPU, in a process of its own
+    (phase 11 runs these beside the card's replays)."""
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import torch
+
+    from rtk_visual_inertial_navigation_tpu_torch.pipeline.replay import \
+        mode_sim_kwargs
+    from rtk_visual_inertial_navigation_tpu_torch.sim import (SimConfig,
+                                                              simulate)
+    torch.set_num_threads(2)
+    sim = simulate(SimConfig(**mode_sim_kwargs(name, MODE_DURATION)))
+    est, fixed, _, seconds = _mode_replay(torch, "cpu", name, sim, f32)
+    return _replay_summary(est, fixed, seconds)
+
+
+def _same_replay(card, cpu, tol):
+    """Card against CPU: the same frames, flags and active ambiguities,
+    positions within ``tol``.  Returns (largest difference, failures)."""
+    import numpy as np
+    if card["t"] != cpu["t"]:
+        return float("nan"), [f"{len(card['t'])} frames on the card, "
+                              f"{len(cpu['t'])} on the cpu, or other times"]
+    diff = float(np.abs(np.stack(card["p"]) - np.stack(cpu["p"])).max())
+    fails = []
+    if not diff <= tol:
+        fails.append(f"positions differ by {diff:.3e} m (tol {tol:g})")
+    if card["fixed"] != cpu["fixed"] \
+            or card["initialized"] != cpu["initialized"]:
+        fails.append("initialized or the rtk_fixed flags differ")
+    if card["keys"] != cpu["keys"]:
+        fails.append("the active phase-bias slots differ")
+    return diff, fails
+
+
+def phase_modes(torch, dev, card):
+    """Phase 11: the estimator's other navigation modes on the card."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    import rtk_visual_inertial_navigation_tpu_torch.solver.gauss_newton as gn
+    from rtk_visual_inertial_navigation_tpu_torch.ops.launches import \
+        LAUNCHES
+    from rtk_visual_inertial_navigation_tpu_torch.pipeline.replay import (
+        mode_sim_kwargs, mode_truth)
+    from rtk_visual_inertial_navigation_tpu_torch.sim import (SimConfig,
+                                                              simulate)
+
+    t_phase = time.time()
+    # the host CPU's replays run in two processes beside the card's
+    pool = ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    root = str(Path(__file__).resolve().parent)
+    cpu = {(name, f32): pool.submit(_cpu_mode_replay, root, name, f32)
+           for name, f32 in [(n, True) for n in MODE_F32_CPU]
+           + [(n, False) for n in MODE_F64]}
+    sims = {name: simulate(SimConfig(**mode_sim_kwargs(name, MODE_DURATION)))
+            for name in dict.fromkeys(MODE_F32 + MODE_F64)}
+    # the (B, n) of every system the f32 step factors, and every f32
+    # system factored outside the kernels (ops/linalg.py's cholesky_ex,
+    # which marginalization.py::spd_solve also reaches): there must be none
+    shapes, outside = set(), []
+    factor, cholesky_ex = gn.chol_factor_lanes, torch.linalg.cholesky_ex
+
+    def recorded(S, *a, **kw):
+        shapes.add(tuple(S.shape[:2]))
+        return factor(S, *a, **kw)
+
+    def library(A, *a, **kw):
+        if A.dtype == torch.float32:
+            outside.append(tuple(A.shape))
+        return cholesky_ex(A, *a, **kw)
+    gn.chol_factor_lanes, torch.linalg.cholesky_ex = recorded, library
+    res = {}
+    try:
+        for name in MODE_F32:
+            shapes.clear()
+            outside.clear()
+            LAUNCHES.clear()
+            est, fixed, stamps, t_run = _mode_replay(torch, dev, name,
+                                                     sims[name], f32=True)
+            launches = dict(LAUNCHES)
+            truth, fails = mode_truth(name, est, sims[name])
+            if name in MODE_F32_CPU:
+                # the JAX package's f32 step misses these bounds too: the
+                # card is held to the same f32 replay on the host instead
+                truth["bounds_not_met_as_in_jax"], fails = fails, []
+                diff, fails = _same_replay(
+                    _replay_summary(est, fixed, t_run),
+                    cpu[(name, True)].result(), MODE_F32_TOL_M)
+                truth["card_vs_cpu_f32_m"] = diff
+            for k in CHOL_KERNELS:
+                if not launches.get(k, 0):
+                    fails.append(f"the f32 replay never launched the {k} "
+                                 f"kernel")
+            if outside:
+                fails.append(f"f32 systems {sorted(set(outside))} were "
+                             f"factored by torch.linalg.cholesky_ex")
+            n_frames = len(est.trajectory)
+            gaps = np.diff(np.asarray(stamps))
+            out = dict(
+                frames=n_frames, replay_s=t_run,
+                frames_per_s=n_frames / t_run,
+                median_frame_ms=1e3 * float(np.median(gaps)),
+                launches=launches,
+                launches_per_frame={k: v / n_frames
+                                    for k, v in launches.items()},
+                factored_B_n=sorted(shapes), truth=truth)
+            print(f"phase 11: mode {name} {MODE_DURATION:g} s f32 on "
+                  f"{card}: {json.dumps(out)}", flush=True)
+            if fails:
+                _fail(f"phase 11 mode {name} f32: " + "; ".join(fails))
+            res[name] = out
+    finally:
+        gn.chol_factor_lanes, torch.linalg.cholesky_ex = factor, cholesky_ex
+
+    # f64 on the card against the same replay on the host CPU
+    for name in MODE_F64:
+        est, fixed, _, tc = _mode_replay(torch, dev, name, sims[name],
+                                         f32=False)
+        host = cpu[(name, False)].result()
+        diff, fails = _same_replay(_replay_summary(est, fixed, tc), host,
+                                   PIPE_F64_TOL_M)
+        truth, tf = mode_truth(name, est, sims[name])
+        fails += tf
+        print(f"phase 11: mode {name} {MODE_DURATION:g} s f64: "
+              f"{len(est.trajectory)} frames, card vs cpu max position "
+              f"difference {diff:.3e} m (tol {PIPE_F64_TOL_M:g}), the same "
+              f"{len(fixed)} rtk_fixed flags and active ambiguities; truth "
+              f"{json.dumps(truth)}; replay {tc:.1f} s on the card, "
+              f"{host['seconds']:.1f} s on the cpu", flush=True)
+        if fails:
+            _fail(f"phase 11 mode {name} f64 card vs cpu: "
+                  + "; ".join(fails))
+    pool.shutdown()
+    print(f"phase 11: {time.time() - t_phase:.1f} s in all", flush=True)
+    return res
+
+
 def _free_port():
     import socket
     with socket.socket() as sk:
@@ -1936,6 +2159,7 @@ def phase_dryrun(torch, card):
 
 
 def main():
+    t_script = time.time()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1982,6 +2206,7 @@ def main():
     sres = phase_sharded_gloo(torch, card, flag, ones, vres)
     phase_dryrun(torch, card)
     print(f"phase 10: {time.time() - t0:.1f} s in all", flush=True)
+    mres = phase_modes(torch, dev, card)
 
     n = launches.get("proj_segments", 0)
     if n == 0:
@@ -2029,7 +2254,12 @@ def main():
                      launches_sharded_fp2_per_rank=[
                          r[name] for r in sres["rtk"]["launches"]],
                      launches_sharded_vi_fp2_per_rank=[
-                         r[name] for r in sres["vi"]["launches"]])
+                         r[name] for r in sres["vi"]["launches"]],
+                     launches_per_mode_replay={
+                         m: r["launches"][name] for m, r in mres.items()},
+                     launches_per_mode_frame={
+                         m: r["launches_per_frame"][name]
+                         for m, r in mres.items()})
         if key == "solve":
             extra.update(k16=fl["solve"][COV_COLS],
                          vi_k16=vi["solve"][COV_COLS])
@@ -2045,10 +2275,12 @@ def main():
             library_ms=main["library_ms"], device_ms=main["device_ms"],
             shape=dict(B=fl["B"], n=fl["n"]),
             launches_per_vi_solve=vres["launches"][name], **extra,
-            phase="phases 3, 5, 6, 7 and 10 (the f32 step and covariance "
-                  "of the window solves, the f32 step of the pipeline's and "
-                  "the bag replay's solves, and of the sharded flagship and "
-                  "VI solves); timed in phase 4"))
+            phase="phases 3, 5, 6, 7, 10 and 11 (the f32 step and "
+                  "covariance of the window solves, the f32 step of the "
+                  "pipeline's and the bag replay's solves, of the sharded "
+                  "flagship and VI solves and of the nine other navigation "
+                  "modes); timed in phase 4"))
+    print(f"chip_smoke: {time.time() - t_script:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,8 @@ from rtk_visual_inertial_navigation_tpu_torch.sim import SimConfig, simulate
 from rtk_visual_inertial_navigation_tpu_torch.sim.synthetic import \
     gnss_epoch_of
 
+from torch_mode_refs import one_solve_program
+
 torch.set_num_threads(1)
 
 DURATION = 5.0
@@ -101,17 +103,6 @@ def _replay(est, sim, epoch_of, start=0, on_frame=None):
     return fixed
 
 
-def _one_solve_program(jest):
-    """Let the JAX estimator export the LAMBDA covariance columns on every
-    frame, so that it compiles one chains-solve program where it would
-    compile two (~20 s).  Image frames never read the columns (only
-    ``_integer_solve`` does, right after a GNSS frame's solve), so every
-    state and decision is unchanged."""
-    solve = jest._jit_solve_chains
-    jest._jit_solve_chains = lambda want_cov=True: solve(True)
-    return jest
-
-
 @pytest.fixture(scope="module")
 def replays(tmp_path_factory):
     # the port's simulator: the same arrays as the JAX simulator's to 1e-12
@@ -123,7 +114,7 @@ def replays(tmp_path_factory):
     mid_i = int(sim.cam_idx[len(sim.cam_idx) // 2])
     tmp = tmp_path_factory.mktemp("ckpt")
     jpath, tpath = str(tmp / "jax_mid.npz"), str(tmp / "port_mid.npz")
-    jest = _one_solve_program(_count_margs(JEstimator(JEstimatorConfig(**kw))))
+    jest = one_solve_program(_count_margs(JEstimator(JEstimatorConfig(**kw))))
     n_traj_mid = []
 
     def at_frame(est, save, path):
@@ -142,7 +133,7 @@ def replays(tmp_path_factory):
                               jpath)
     rfixed = _replay(resumed, sim, gnss_epoch_of, start=mid_i + 1)
     jresumed = jax_load_checkpoint(
-        _one_solve_program(JEstimator(JEstimatorConfig(**kw))), tpath)
+        one_solve_program(JEstimator(JEstimatorConfig(**kw))), tpath)
     _replay(jresumed, sim, jax_gnss_epoch_of, start=mid_i + 1)
     return dict(sim=sim, jest=jest, test=test, resumed=resumed,
                 jresumed=jresumed, jfixed=jfixed, tfixed=tfixed,
