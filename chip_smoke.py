@@ -4,8 +4,11 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-  1. print the card's name and power limit; build the CUDA kernels from
-     the sources in this checkout (one nvcc per source, all in parallel);
+  1. print the card's name and power limit; import every name the JAX
+     package's subpackages re-export (read from its ``__init__.py`` files
+     with ``ast``, not imported) through the port's subpackage of the same
+     name; build the CUDA kernels from the sources in this checkout (one
+     nvcc per source, all in parallel);
   2. hold the projection kernel against its plain PyTorch version on the
      card: f64 and f32, Cauchy a in {0, 1}, want_ext in {True, False},
      random ids with ragged nobs and near-plane landmarks, and the flagship
@@ -70,6 +73,10 @@ Phases (any failure exits non-zero and prints no result line):
      and host syncs per frame;
      b. images -> ``TrackerFrontend`` -> ``Estimator`` on the card at
      tests/test_tracker_frontend.py's configuration and bounds;
+     c. ``ransac_score`` on the card and on the host CPU, FE_MAX_CNT
+     two-view correspondences and 128 hypotheses, some repeating a row on
+     purpose: the same inlier mask, and no inlier in any hypothesis that
+     repeats a row;
   9. the demo's ``main`` on the card in each of its five modes: initialized,
      finite positions, one CSV row per IMU sample;
   10. the sharded flagship solve at full width (phase 3's problem) through
@@ -131,6 +138,9 @@ import warnings
 from pathlib import Path
 
 PKG = "rtk_visual_inertial_navigation_tpu_torch"
+JAX_PKG = "rtk_visual_inertial_navigation_tpu"
+# the subpackages whose __init__.py re-exports names in the JAX package
+REEXPORTS = ("ops", "factors", "geodesy", "solver", "core", "preintegration")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}   # non-tensor-core
 # arithmetic of one valid observation in proj_segments.cu, counted from the
@@ -192,6 +202,10 @@ FE_PX_TOL = 0.01
 # and the median tracking error against the known warp (px)
 FE_TRUTH_TOL_PX = 0.25
 FE_PROFILE_FRAMES = 3
+# phase 8c: RANSAC scoring at the frontend's width (FE_MAX_CNT rows) with
+# every RANSAC_REPEAT_EVERY-th of RANSAC_HYP hypotheses repeating a row
+RANSAC_HYP = 128
+RANSAC_REPEAT_EVERY = 4
 # phase 8b: tests/test_tracker_frontend.py:34-63's configuration
 WIRE_H, WIRE_W, WIRE_F = 240, 320, 160.0
 # phase 9: the demo's five modes, a few seconds each (cut from 4 s when
@@ -1397,6 +1411,88 @@ def _run_frontend(torch, dev, frames, cam):
     return out, ms
 
 
+def phase_public_names(root):
+    """Phase 1: every name a JAX subpackage's ``__init__.py`` re-exports
+    (read as text with ``ast``) is bound by the port's subpackage of the
+    same name once that is imported.  Runs before any other module of the
+    port is imported, so that a submodule that only another import binds
+    on its package is not counted."""
+    import ast
+    import importlib
+    t0 = time.time()
+    n = 0
+    for sub in REEXPORTS:
+        tree = ast.parse((root / JAX_PKG / sub / "__init__.py").read_text())
+        names = [a.asname or a.name for node in tree.body
+                 if isinstance(node, ast.ImportFrom) for a in node.names]
+        mod = importlib.import_module(f"{PKG}.{sub}")
+        missing = [x for x in names if x not in vars(mod)]
+        if not names or missing:
+            _fail(f"{PKG}.{sub} lacks {missing} of the JAX package's "
+                  f"{names}")
+        n += len(names)
+    if "jax" in sys.modules:
+        _fail("importing the port's subpackages imported jax")
+    print(f"phase 1: the {n} names the JAX package's {len(REEXPORTS)} "
+          f"subpackages re-export import through the port's, in "
+          f"{time.time() - t0:.2f} s", flush=True)
+
+
+def phase_ransac(torch, dev, card):
+    """Phase 8c: ``ransac_score`` on the card and on the host CPU on one
+    set of hypotheses, every RANSAC_REPEAT_EVERY-th repeating a row on
+    purpose: the same inlier mask and ``ok`` on both, and no inlier in any
+    hypothesis that repeats a row (its null space has more than one
+    dimension, so its SVD's last vector is the implementation's choice)."""
+    import numpy as np
+
+    from rtk_visual_inertial_navigation_tpu_torch.frontend.tracker import (
+        distinct_rows, ransac_hypotheses, ransac_masks, ransac_score)
+
+    t0 = time.time()
+    rng = np.random.default_rng(0)
+    K = FE_MAX_CNT
+    # two unit-plane views of points 4-12 m ahead, the second turned 0.05
+    # rad about y and moved 0.3 m; a tenth of the second view's points
+    # moved off their epipolar lines
+    X = rng.uniform([-4.0, -3.0, 4.0], [4.0, 3.0, 12.0], size=(K, 3))
+    c, s_ = np.cos(0.05), np.sin(0.05)
+    X1 = X @ np.array([[c, 0, s_], [0, 1, 0], [-s_, 0, c]]).T \
+        + [0.3, 0.02, 0.05]
+    xy0, xy1 = X[:, :2] / X[:, 2:], X1[:, :2] / X1[:, 2:]
+    bad = rng.random(K) < 0.1
+    xy1[bad] += rng.uniform(0.05, 0.2, (bad.sum(), 2)) \
+        * rng.choice([-1, 1], (bad.sum(), 2))
+    valid = rng.random(K) < 0.9
+    idx = ransac_hypotheses(valid, RANSAC_HYP, seed=0)
+    idx[::RANSAC_REPEAT_EVERY, 7] = idx[::RANSAC_REPEAT_EVERY, 0]
+    repeated = ~distinct_rows(idx)
+    got = []
+    for d in (torch.device(dev), torch.device("cpu")):
+        args = [torch.as_tensor(a, device=d) for a in (xy0, xy1, valid)]
+        counts = ransac_masks(*args, idx.to(d)).sum(-1).cpu()
+        inl, ok = ransac_score(*args, idx.to(d))
+        got.append((d, counts, inl.cpu().numpy(), bool(ok)))
+    for d, counts, inl, ok in got:
+        if counts[repeated].any():
+            _fail(f"phase 8c: on {d}, a hypothesis that repeats a row "
+                  f"scores {int(counts[repeated].max())} inliers")
+        if not ok or inl.sum() < valid.sum() // 2:
+            _fail(f"phase 8c: on {d}, ok {ok}, {int(inl.sum())} inliers of "
+                  f"{int(valid.sum())} valid rows")
+    (_, _, inl_c, ok_c), (_, _, inl_h, ok_h) = got
+    if ok_c != ok_h or not np.array_equal(inl_c, inl_h):
+        _fail(f"phase 8c: the card's inlier mask differs from the CPU's in "
+              f"{int((inl_c != inl_h).sum())} rows")
+    n_rep = int(repeated.sum())
+    print(f"phase 8c: ransac_score on {card} and on the host CPU, {K} rows "
+          f"({int(valid.sum())} valid), {RANSAC_HYP} hypotheses of which "
+          f"{n_rep} repeat a row ({len(idx[::RANSAC_REPEAT_EVERY])} on "
+          f"purpose), each scoring 0 on both; the same mask, "
+          f"{int(inl_c.sum())} inliers, {int((inl_c & bad).sum())} of them "
+          f"planted outliers; {time.time() - t0:.2f} s", flush=True)
+
+
 def phase_frontend(torch, dev, card, n_frames=FE_FRAMES):
     """Phase 8a: the image frontend at full width on the card against the
     port's CPU frontend on the same frames and against the known warp."""
@@ -2175,6 +2271,7 @@ def main():
     card = _card_line()
     print(f"phase 1: {card}; torch {torch.__version__}, cuda "
           f"{torch.version.cuda}", flush=True)
+    phase_public_names(root)
     from rtk_visual_inertial_navigation_tpu_torch.ops import build
     t0 = time.time()
     logs = build.build(["proj_segments", *CHOL_KERNELS], verbose=True)
@@ -2199,6 +2296,7 @@ def main():
     pres = phase_pipeline(torch, dev, card)
     bres = phase_bag(torch, dev, card)
     phase_frontend(torch, dev, card)
+    phase_ransac(torch, dev, card)
     wres = phase_wiring(torch, dev, card)
     dres = phase_demo(torch, dev, card)
     t0 = time.time()

@@ -17,9 +17,16 @@ the bag writer, the result CSV, and the demo ``examples/run_sim_demo.py``),
 the image frontend (``models.cameras``, ``frontend.tracker``,
 ``frontend.tracker_frontend``) and the dp x fp sharded solves on
 ``torch.distributed`` (``parallel.sharded_rtk_solve``,
-``parallel.sharded_vi_solve``, ``parallel.multihost``).  Only the JAX
-package's persistent compile cache (``utils/compile_cache.py``) has no
-counterpart.
+``parallel.sharded_vi_solve``, ``parallel.multihost``).
+
+The public surface is complete: every module and every public name of the
+JAX package, the subpackages' re-exports included, has a counterpart here,
+except two.  ``utils/compile_cache.py`` turns on JAX's persistent XLA
+cache, and nothing here is compiled by XLA (the CUDA and C++ builds cache
+their libraries by source hash in ``build/``).  ``LANES``
+(``ops/pallas_chol_lanes.py``) is the TPU's vector lane width, the batch
+tile of the Pallas kernel; the CUDA kernels tile by thread blocks and
+clusters instead.
 """
 
 from .device import full_precision, resolve_device  # noqa: F401

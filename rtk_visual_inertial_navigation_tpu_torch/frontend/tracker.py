@@ -241,13 +241,21 @@ def ransac_hypotheses(valid, n_hyp: int = 128, seed: int = 0):
                              generator=gen).reshape(n_hyp, 8)
 
 
-def ransac_score(xy0, xy1, valid, idx, thresh: float = 3.0 / 460.0):
-    """Score the 8-point essential-matrix hypotheses ``idx`` (n_hyp, 8) on
-    unit-plane correspondences: each solved as a batched SVD, the inliers
-    counted by the symmetric epipolar distance, the first best hypothesis
-    wins.  Returns (inlier_mask (K,), ok) — ok False when <8 valid points
-    (gate disabled, mask = valid)."""
-    ok = torch.sum(valid) >= 8
+def distinct_rows(idx):
+    """(n_hyp,) True where the 8 rows of hypothesis ``idx[h]`` are all
+    distinct: an exact integer test, the same on every device."""
+    return torch.all(torch.diff(torch.sort(idx, dim=-1).values, dim=-1)
+                     != 0, dim=-1)
+
+
+def ransac_masks(xy0, xy1, valid, idx, thresh: float = 3.0 / 460.0):
+    """(n_hyp, K) inlier mask of each 8-point essential-matrix hypothesis
+    ``idx`` (n_hyp, 8) on unit-plane correspondences: each solved as a
+    batched SVD, the inliers counted by the symmetric epipolar distance.
+    A hypothesis whose 8 rows are not all distinct has no inliers: its
+    system has rank < 8, so its null space has more than one dimension and
+    the SVD's last vector is whichever one the SVD implementation returns
+    (the reference's sampler never forms such a set)."""
     one0 = torch.cat([xy0, torch.ones_like(xy0[:, :1])], dim=-1)
     one1 = torch.cat([xy1, torch.ones_like(xy1[:, :1])], dim=-1)
     a0, a1 = one0[idx], one1[idx]                       # (n_hyp, 8, 3)
@@ -262,7 +270,16 @@ def ransac_score(xy0, xy1, valid, idx, thresh: float = 3.0 / 460.0):
         1.0 / torch.clamp_min(Ex0[..., 0] ** 2 + Ex0[..., 1] ** 2, 1e-12)
         + 1.0 / torch.clamp_min(Etx1[..., 0] ** 2 + Etx1[..., 1] ** 2,
                                 1e-12))
-    masks = (d2 < thresh * thresh) & valid
+    return (d2 < thresh * thresh) & valid & distinct_rows(idx)[:, None]
+
+
+def ransac_score(xy0, xy1, valid, idx, thresh: float = 3.0 / 460.0):
+    """The inlier mask of the first hypothesis of ``idx`` with the most
+    inliers (``ransac_masks``).  Returns (inlier_mask (K,), ok) — ok False
+    when <8 valid points or no hypothesis has 8 distinct rows (gate
+    disabled, mask = valid)."""
+    ok = (torch.sum(valid) >= 8) & torch.any(distinct_rows(idx))
+    masks = ransac_masks(xy0, xy1, valid, idx, thresh)
     best = torch.argmax(masks.sum(dim=-1)).reshape(1)
     inliers = masks.index_select(0, best)[0]
     return torch.where(ok, inliers, valid), ok

@@ -1,0 +1,1 @@
+from . import lie  # noqa: F401

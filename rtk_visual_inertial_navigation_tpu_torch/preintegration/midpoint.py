@@ -171,6 +171,15 @@ def preintegrate(dts, accs, gyrs, valid, linearized_ba, linearized_bg,
                          gyr_i, gyr_j)
 
 
+def preintegrate_sequence(dts, accs, gyrs, valid, linearized_ba,
+                          linearized_bg, noise: ImuNoise) -> Preintegrated:
+    """Preintegrate a sequence of intervals: every input but ``noise``
+    carries a leading interval axis, ``noise`` is shared (the JAX package's
+    ``vmap(preintegrate, in_axes=(0, 0, 0, 0, 0, 0, None))``)."""
+    return preintegrate(dts, accs, gyrs, valid, linearized_ba,
+                        linearized_bg, noise)
+
+
 def imu_residual(pre: Preintegrated, g_world,
                  p_i, q_i, v_i, ba_i, bg_i,
                  p_j, q_j, v_j, ba_j, bg_j, pbg):

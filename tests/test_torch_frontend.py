@@ -16,7 +16,13 @@ Tolerances, each stated where it is held:
   - LK tracks within LK_PX_TOL pixels (float32 patch sums add in another
     order), the same ``ok`` flags;
   - RANSAC: the port's scoring of JAX's own hypotheses gives JAX's inlier
-    mask (``jax.random`` streams cannot be reproduced in torch);
+    mask (``jax.random`` streams cannot be reproduced in torch) wherever
+    JAX's winning hypothesis has 8 distinct rows, which the scoring test
+    asserts: JAX draws rows with replacement, and a hypothesis that
+    repeats a row has a null space of more than one dimension, whose
+    ``Vt[-1]`` is up to the SVD implementation (the port scores such a
+    hypothesis as having no inliers, and the frontend tests run JAX's own
+    scoring under that rule, ``ransac_distinct``);
   - ``TrackerFrontend`` frame by frame, mono with ``GyroPredictor`` and
     stereo: the same ids, pixels within LK_PX_TOL, rays within RAY_TOL,
     with both frontends detecting on the JAX response (on these renders
@@ -346,6 +352,48 @@ def _jax_hypotheses(valid, n_hyp=128, seed=0):
     return torch.from_numpy(np.array(idx)).long()
 
 
+def _jax_masks(xy0, xy1, valid, idx, thresh):
+    """Every hypothesis's inlier mask (n_hyp, K) as the JAX package's
+    ``ransac_essential`` scores it (tracker.py:208-231), on the hypotheses
+    ``idx``."""
+    K = xy0.shape[0]
+    one0 = jnp.concatenate([xy0, jnp.ones((K, 1), xy0.dtype)], axis=-1)
+    one1 = jnp.concatenate([xy1, jnp.ones((K, 1), xy1.dtype)], axis=-1)
+
+    def solve_one(rows):
+        A = jnp.einsum("ki,kj->kij", one0[rows], one1[rows]).reshape(8, 9)
+        _, _, Vt = jnp.linalg.svd(A, full_matrices=True)
+        return Vt[-1].reshape(3, 3).T
+
+    def score(E):
+        Ex0 = one0 @ E.T
+        Etx1 = one1 @ E
+        num = jnp.sum(one1 * Ex0, axis=-1)
+        d2 = num * num * (
+            1.0 / jnp.maximum(Ex0[:, 0] ** 2 + Ex0[:, 1] ** 2, 1e-12)
+            + 1.0 / jnp.maximum(Etx1[:, 0] ** 2 + Etx1[:, 1] ** 2, 1e-12))
+        return (d2 < thresh * thresh) & valid
+
+    return jax.vmap(score)(jax.vmap(solve_one)(idx))
+
+
+# compiled once per process, for the frontend tests' RANSAC steps
+_jax_masks_jit = cheap_jit(_jax_masks)
+
+
+def _jax_winner(masks, inl_j):
+    """The hypothesis that won in JAX: the first with the most inliers,
+    whose mask JAX returned (asserted)."""
+    best = int(np.argmax(masks.sum(-1)))
+    np.testing.assert_array_equal(masks[best], np.asarray(inl_j))
+    return best
+
+
+def _distinct(idx):
+    """(n_hyp,) True where a hypothesis's 8 rows are all distinct."""
+    return np.array([len(np.unique(r)) == 8 for r in np.asarray(idx)])
+
+
 def test_ransac_scoring_of_jax_hypotheses_matches_jax():
     rng = np.random.default_rng(0)
     xy0, xy1 = _two_view(rng)
@@ -356,16 +404,34 @@ def test_ransac_scoring_of_jax_hypotheses_matches_jax():
         * rng.choice([-1, 1], size=(12, 2))
     valid = np.ones(n, bool)
     valid[[3, 17]] = False
+    n_repeat = 0
     for seed in (0, 5):
         inl_j, ok_j = jtr.ransac_essential(
             jnp.asarray(xy0), jnp.asarray(xy1), jnp.asarray(valid),
             seed=seed)
+        idx = _jax_hypotheses(valid, seed=seed)
+        # what the comparison rests on: JAX's winner has 8 distinct rows
+        best = _jax_winner(np.asarray(_jax_masks(
+            jnp.asarray(xy0), jnp.asarray(xy1), jnp.asarray(valid),
+            jnp.asarray(idx.numpy()), 3.0 / 460.0)), inl_j)
+        assert _distinct(idx)[best], idx[best]
+        n_repeat += int((~_distinct(idx)).sum())
         inl_t, ok_t = ttr.ransac_score(
             torch.from_numpy(xy0), torch.from_numpy(xy1),
-            torch.from_numpy(valid), _jax_hypotheses(valid, seed=seed))
+            torch.from_numpy(valid), idx)
         assert bool(ok_t) and bool(ok_j)
         np.testing.assert_array_equal(inl_t.numpy(), np.asarray(inl_j))
         assert not (inl_t.numpy() & bad).any()
+    # with replacement over 58 rows, about a third of the hypotheses
+    # repeat a row; with none of 8 distinct rows the gate is off
+    print(f"{n_repeat} of 256 hypotheses repeat a row")
+    assert n_repeat > 0
+    rep = idx.clone()
+    rep[:, 7] = rep[:, 0]
+    inl, ok = ttr.ransac_score(torch.from_numpy(xy0), torch.from_numpy(xy1),
+                               torch.from_numpy(valid), rep)
+    assert not bool(ok)
+    np.testing.assert_array_equal(inl.numpy(), valid)
     # the port's own sampler: valid rows only, reproducible, and the gate
     # still rejects every planted outlier
     idx = ttr.ransac_hypotheses(valid, seed=3)
@@ -389,8 +455,9 @@ def test_ransac_scoring_of_jax_hypotheses_matches_jax():
 @pytest.fixture
 def jax_frontend(monkeypatch):
     """The JAX frontend with its detection and RANSAC steps compiled once
-    each (cheap XLA options) instead of dispatched op by op, and the port's
-    frontend drawing JAX's RANSAC hypotheses and detecting on JAX's
+    each (cheap XLA options) instead of dispatched op by op, its RANSAC
+    step under the port's distinct-row rule (``ransac_distinct``), and the
+    port's frontend drawing JAX's RANSAC hypotheses and detecting on JAX's
     response.  LK stays as the JAX frontend runs it, op by op: compiled
     whole, XLA sums the float32 patches in another order, and a track on
     the edge of the forward-backward test can flip."""
@@ -410,8 +477,32 @@ def jax_frontend(monkeypatch):
                         cheap_jit(jtr.build_pyramid, static_argnums=(1,)))
     ransac = cheap_jit(lambda a, b, v, th, seed: jtr.ransac_essential(
         a, b, v, th, seed=seed))
-    monkeypatch.setattr(jfe, "ransac_essential",
-                        lambda a, b, v, th, seed: ransac(a, b, v, th, seed))
+
+    def ransac_distinct(a, b, v, th, seed):
+        """JAX's RANSAC step under the port's rule: JAX's own scoring of
+        its hypotheses (``_jax_masks``, held on every call to the mask
+        ``ransac_essential`` returns), in which a hypothesis that repeats a
+        row scores no inliers.  Where JAX's winner repeats a row, JAX's
+        mask rests on the null vector XLA's SVD picked, which no other SVD
+        need reproduce.  ``.frames`` keeps, per call, the seed (the frame
+        number), whether JAX's winner had 8 distinct rows and whether the
+        rule kept JAX's mask."""
+        inl, ok = ransac(a, b, v, th, seed)
+        inl = np.asarray(inl)
+        idx = _jax_hypotheses(v, seed=seed)
+        m = np.asarray(_jax_masks_jit(a, b, v, jnp.asarray(idx.numpy()),
+                                      th))
+        best = _jax_winner(m, inl)
+        distinct = _distinct(idx)
+        m = m & distinct[:, None]
+        inl_d = m[np.argmax(m.sum(-1))]
+        ransac_distinct.frames.append(
+            (seed, bool(distinct[best]), bool((inl_d == inl).all())))
+        if not distinct.any():
+            return v, False
+        return jnp.asarray(inl_d), ok
+    ransac_distinct.frames = []
+    monkeypatch.setattr(jfe, "ransac_essential", ransac_distinct)
     monkeypatch.setattr(tfe, "ransac_hypotheses", _jax_hypotheses)
     return jfe
 
@@ -424,6 +515,15 @@ def _same_frame(out_j, out_t, fe_j, fe_t):
     np.testing.assert_array_equal(fe_t.ok, fe_j.ok)
     np.testing.assert_array_equal(fe_t.ids, fe_j.ids)
     np.testing.assert_allclose(fe_t.pts, fe_j.pts, rtol=0, atol=LK_PX_TOL)
+
+
+def _check_ransac_frames(jfe_):
+    """RANSAC ran, and on every call where JAX's winner had 8 distinct rows
+    the rule kept JAX's own mask."""
+    frames = jfe_.ransac_essential.frames
+    print("RANSAC per call (seed, JAX's winner has distinct rows, the rule "
+          f"kept JAX's mask): {frames}")
+    assert frames and all(same for _, distinct, same in frames if distinct)
 
 
 # frames 20-27 (t = 2.0-2.7 s, after the static lead): motion, lost
@@ -463,6 +563,7 @@ def test_tracker_frontend_mono_with_gyro_matches_jax(jax_frontend):
             n_first = n_first or fe_t._next_id
     print(f"ids: {n_first} after the first frame, {fe_t._next_id} in all")
     assert fe_t._frame_no == len(MONO_FRAMES) and fe_t._next_id > n_first
+    _check_ransac_frames(jax_frontend)
 
 
 def test_tracker_frontend_stereo_matches_jax(jax_frontend):
@@ -487,6 +588,7 @@ def test_tracker_frontend_stereo_matches_jax(jax_frontend):
         _same_frame(out_j, out_t, fe_j, fe_t)
         n_right += len(out_t[2])
     assert n_right >= 10
+    _check_ransac_frames(jax_frontend)
 
 
 def test_refill_mask_matches_host_loop():

@@ -13,8 +13,15 @@ marginalizes its oldest frame).
 For each case, ``tests/torch_mode_refs.py`` replays the sequence through
 the JAX estimator in a process of its own (every JAX compile stays out of
 the pytest worker) and writes the simulator's arrays with the result.
-The worker feeds the same arrays through the same event loop to the
-port's ``Estimator(device="cpu")`` in float64 and holds:
+Those outputs are stored in ``tests/data/torch_modes/`` (recorded with
+``python tests/torch_mode_refs.py --record``); a case uses its stored
+file where the manifest matches this tree (the jax, jaxlib and numpy
+versions, the JAX package's sources, the helper, the case's keyword
+arguments) and otherwise runs the JAX replay live, printing why.  The
+witness, ``test_mode_reference_is_current``, replays WITNESS live in
+every run and holds the stored file to it.  The worker feeds the
+simulator's arrays through the same event loop to the port's
+``Estimator(device="cpu")`` in float64 and holds:
 
   - every frame's time, ``initialized``, ``frame_count``, the per-event
     ``rtk_fixed`` flags and the chain statistics equal to JAX's;
@@ -43,8 +50,9 @@ from rtk_visual_inertial_navigation_tpu_torch.pipeline.replay import (
 from rtk_visual_inertial_navigation_tpu_torch.sim import SimConfig
 from rtk_visual_inertial_navigation_tpu_torch.sim.synthetic import SimData
 
-from torch_mode_refs import (DURATION, estimator_arrays, record_events,
-                             run_reference)
+from torch_mode_refs import (DURATION, estimator_arrays, load_stored,
+                             record_events, reference, run_reference,
+                             stale_reason)
 
 torch.set_num_threads(1)
 
@@ -52,6 +60,10 @@ torch.set_num_threads(1)
 POS_TOL_M = 1e-6
 AMB_TOL_CYC = 1e-6
 ATT_TOL_RAD = 1e-6
+# the stored JAX replay against a live one of the same tree and jax build
+WITNESS = "vi"
+WITNESS_TOL_M = 1e-9
+WITNESS_FLOATS = ("traj_p", "x_clk", "phase_bias", "q_init")
 
 
 def _sim_from(ref, case):
@@ -122,7 +134,7 @@ MODE_STATE = {
 
 @pytest.mark.parametrize("case", list(MODE_CASES))
 def test_mode_matches_jax(case, tmp_path):
-    ref = run_reference(case, str(tmp_path / f"{case}.npz"))
+    ref = reference(case, str(tmp_path / f"{case}.npz"))
     sim = _sim_from(ref, case)
     est = Estimator(EstimatorConfig(**mode_config_kwargs(case, sim)),
                     device="cpu")
@@ -146,3 +158,25 @@ def test_mode_matches_jax(case, tmp_path):
     errs, fails = mode_truth(case, est, sim)
     print(f"{case}: against the truth {errs}")
     assert not fails, (fails, errs)
+
+
+def test_mode_reference_is_current(tmp_path):
+    """The stored reference of WITNESS stands for the JAX package as it
+    runs now: its manifest matches, and a live JAX replay gives the same
+    simulator arrays, frame times, flags, chain statistics and counts, and
+    the estimator's float states (WITNESS_FLOATS) within WITNESS_TOL_M."""
+    why = stale_reason(WITNESS)
+    assert why is None, why
+    stored = load_stored(WITNESS)
+    live = run_reference(WITNESS, str(tmp_path / f"{WITNESS}.npz"))
+    assert sorted(stored) == sorted(live)
+    for k, v in live.items():
+        if k in WITNESS_FLOATS:
+            np.testing.assert_allclose(stored[k], v, rtol=0,
+                                       atol=WITNESS_TOL_M, err_msg=k)
+        else:
+            np.testing.assert_array_equal(stored[k], v, err_msg=k)
+    worst = max(float(np.abs(stored[k] - live[k]).max(initial=0.0))
+                for k in WITNESS_FLOATS)
+    print(f"{WITNESS}: stored against live, {len(live['traj_t'])} frames, "
+          f"largest difference in {WITNESS_FLOATS} {worst:.3e}")

@@ -1,6 +1,7 @@
 """The JAX estimator's replay of one navigation mode, in a process of its own.
 
     python tests/torch_mode_refs.py CASE OUT.npz [--step-dtype float32]
+    python tests/torch_mode_refs.py --record
 
 CASE names an entry of the port's ``pipeline.replay.MODE_CASES`` (the
 configuration of a JAX pipeline test).  The process simulates the
@@ -15,10 +16,20 @@ table (keys, active flags, values).  ``--step-dtype float32`` replays
 with the f32 step instead (the configurations' own is f64) and prints the
 JAX test's bounds against the truth (``pipeline.replay.mode_truth``).
 
-``run_reference`` starts it from a test.  The JAX estimator's large XLA
-compiles then run in a fresh process, not in a long-lived pytest worker,
-where this jax build's CPU compiler has aborted (tools/run_suite.py:4-11).
-A process that dies by a signal is run once more.  Two substitutions
+``--record`` runs every case so, each in a process of its own, and
+stores the results in ``tests/data/torch_modes/`` (``<case>.npz``,
+compressed) with ``manifest.json``: the jax, jaxlib and numpy versions,
+a SHA-256 over the JAX package's ``.py`` files and one over this file,
+each case's simulator and configuration keyword arguments, ``DURATION``
+and the command.  ``reference`` gives a test the stored result where the
+manifest matches this tree and the installed versions, and otherwise
+runs the case live and prints why.
+
+``run_reference`` starts the process from a test.  The JAX estimator's
+large XLA compiles then run in a fresh process, not in a long-lived
+pytest worker, where this jax build's CPU compiler has aborted
+(tools/run_suite.py:4-11).  A process that dies by a signal is run once
+more.  Two substitutions
 leave every state and decision as they are and save compiles: the VI
 cases, which see no GNSS epoch and so form no chain, solve and
 marginalize through the estimator's programs without the (all-zero)
@@ -28,17 +39,122 @@ would compile two.
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import json
 import os
 import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
+from importlib import metadata
 
 import numpy as np
 
 TIMEOUT_S = 240
 DURATION = 5.0
 CHAIN_STATS = ("created", "merged", "died", "truncated")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REF_DIR = os.path.join(ROOT, "tests", "data", "torch_modes")
+RECORD_COMMAND = "python tests/torch_mode_refs.py --record"
+RECORD_JOBS = 3             # cases recorded at a time, ~2 cores each
+
+
+def _sha256(paths) -> str:
+    h = hashlib.sha256()
+    for path in paths:
+        h.update(os.path.relpath(path, ROOT).encode() + b"\0")
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def manifest() -> dict:
+    """What the stored references were computed from: the installed jax,
+    jaxlib and numpy, the JAX package's sources and this file (its event
+    loop and substitutions), and each case's keyword arguments."""
+    from rtk_visual_inertial_navigation_tpu_torch.pipeline.replay import (
+        MODE_CASES, mode_sim_kwargs)
+    pkg = os.path.join(ROOT, "rtk_visual_inertial_navigation_tpu")
+    sources = sorted(os.path.join(d, f) for d, _, fs in os.walk(pkg)
+                     for f in fs if f.endswith(".py"))
+    cases = {}
+    for name, case in MODE_CASES.items():
+        kw = {k: v for k, v in dataclasses.asdict(case).items()
+              if k != "truth"}
+        kw["sim"] = mode_sim_kwargs(name, DURATION)
+        cases[name] = kw
+    # a JSON round trip, so that a fresh manifest compares equal to a
+    # stored one (tuples become lists)
+    return json.loads(json.dumps(dict(
+        versions={m: metadata.version(m)
+                  for m in ("jax", "jaxlib", "numpy")},
+        jax_package_sha256=_sha256(sources),
+        helper_sha256=_sha256([os.path.abspath(__file__)]),
+        duration=DURATION, cases=cases, command=RECORD_COMMAND)))
+
+
+def stale_reason(case: str):
+    """Why the stored reference of ``case`` cannot stand for a live run
+    on this tree, or None where it can."""
+    path = os.path.join(REF_DIR, "manifest.json")
+    if not os.path.exists(os.path.join(REF_DIR, f"{case}.npz")) \
+            or not os.path.exists(path):
+        return f"no stored reference in {os.path.relpath(REF_DIR, ROOT)}"
+    with open(path) as f:
+        stored = json.load(f)
+    current = manifest()
+    for key in ("versions", "jax_package_sha256", "helper_sha256",
+                "duration"):
+        if stored.get(key) != current[key]:
+            return (f"{key} differs: stored {stored.get(key)}, now "
+                    f"{current[key]}")
+    if stored["cases"].get(case) != current["cases"][case]:
+        return (f"the case's kwargs differ: stored "
+                f"{stored['cases'].get(case)}, now {current['cases'][case]}")
+    return None
+
+
+def load_stored(case: str) -> dict:
+    with np.load(os.path.join(REF_DIR, f"{case}.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def reference(case: str, out: str) -> dict:
+    """The JAX replay of ``case``: the stored one where ``stale_reason``
+    finds none, else a live run (``run_reference``) after printing why."""
+    why = stale_reason(case)
+    if why is None:
+        return load_stored(case)
+    print(f"{case}: running the JAX reference live ({why}; re-record "
+          f"with `{RECORD_COMMAND}`)", flush=True)
+    return run_reference(case, out)
+
+
+def record() -> int:
+    """Run every case live, RECORD_JOBS processes at a time, and store the
+    results and the manifest in REF_DIR."""
+    from rtk_visual_inertial_navigation_tpu_torch.pipeline.replay import \
+        MODE_CASES
+    os.makedirs(REF_DIR, exist_ok=True)
+    stamp = manifest()
+
+    def one(case):
+        t0 = time.perf_counter()
+        path = os.path.join(REF_DIR, f"{case}.npz")
+        arrays = run_reference(case, path + ".live.npz")
+        os.remove(path + ".live.npz")
+        np.savez_compressed(path, **arrays)
+        print(f"{case}: recorded in {time.perf_counter() - t0:.1f} s, "
+              f"{os.path.getsize(path)} B", flush=True)
+
+    with ThreadPoolExecutor(RECORD_JOBS) as pool:
+        list(pool.map(one, MODE_CASES))
+    with open(os.path.join(REF_DIR, "manifest.json"), "w") as f:
+        json.dump(stamp, f, indent=1, sort_keys=True)
+        f.write("\n")
+    return 0
 
 
 def run_reference(case: str, out: str, timeout: float = TIMEOUT_S) -> dict:
@@ -49,9 +165,8 @@ def run_reference(case: str, out: str, timeout: float = TIMEOUT_S) -> dict:
     env = dict(os.environ, JAX_PLATFORMS="cpu", JAX_ENABLE_X64="1")
     # the test session's virtual devices are not wanted here
     env.pop("XLA_FLAGS", None)
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (root, env.get("PYTHONPATH")) if p)
+        p for p in (ROOT, env.get("PYTHONPATH")) if p)
     cmd = [sys.executable, os.path.abspath(__file__), case, out]
     for attempt in (1, 2):
         try:
@@ -193,6 +308,10 @@ def record_events(est):
 
 def main(argv) -> int:
     import argparse
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    if argv == ["--record"]:
+        return record()
     ap = argparse.ArgumentParser()
     ap.add_argument("case")
     ap.add_argument("out")
